@@ -1,0 +1,156 @@
+"""Wavefront path integrator with NEE + MIS + Russian roulette
+(reference: src/librender/integrators/path.cpp:19-141, driver loop
+integrator.cpp:82-126).
+
+The reference's per-ray recursion becomes a lockstep Python loop over
+bounces on a lane-last SoA wavefront: every lane runs every stage under an
+active mask. Each bounce makes one closest-hit cast and one shadow cast,
+both through the cluster kernels (accel/cluster.py).
+
+RNG discipline: every lane owns a PCG32 stream; draws happen unconditionally
+in a fixed order per bounce (NEE 2D, BSDF 1D + 2D, RR 1D), so the sequence
+is the same as `misaki_tpu.render.integrator` whatever the masking, device
+or chunking.
+"""
+
+import torch
+
+from misaki_tpu_torch.accel import traverse
+from misaki_tpu_torch.bsdf import kernels as bsdf
+from misaki_tpu_torch.core import frame, rng, vec
+from misaki_tpu_torch.core import math as m
+from misaki_tpu_torch.emitter import kernels as emitter
+from misaki_tpu_torch.render import interaction as inter
+
+DEFAULT_MAX_DEPTH_CAP = 16
+
+
+def _ray_diff(ray):
+    """Camera ray differentials, when the driver generated them."""
+    if "d_dx" in ray:
+        return (ray["d_dx"], ray["d_dy"])
+    return None
+
+
+def n_bounce_iters(scene, depth_cap=DEFAULT_MAX_DEPTH_CAP):
+    """Number of NEE+BSDF bounce iterations: the reference breaks before NEE
+    once depth >= max_depth (path.cpp:49-50); max_depth == -1 means
+    unbounded, which is capped (RR terminates long before)."""
+    if scene.max_depth > 0:
+        return scene.max_depth - 1
+    return depth_cap
+
+
+def sample_path(scene, ray, rng_state, depth_cap=DEFAULT_MAX_DEPTH_CAP):
+    """Per-wavefront radiance estimate.
+
+    ray: dict {o, d (vec3 tuples), mint, maxt (L,), wavelengths (4, L)}.
+    Returns (spectrum (4, L), rng_state).
+    """
+    L = ray["o"][0].shape[0]
+    dev = ray["o"][0].device
+    wavelengths = ray["wavelengths"]
+
+    hit = traverse.intersect(scene, ray["o"], ray["d"], ray["mint"], ray["maxt"])
+    si = inter.compute_interaction(
+        scene, hit, ray["o"], ray["d"], wavelengths, ray_diff=_ray_diff(ray),
+    )
+
+    throughput = torch.ones((4, L), device=dev)
+    result = torch.zeros((4, L), device=dev)
+    eta = torch.ones((L,), device=dev)
+    rad = emitter.radiance_all(scene, wavelengths)
+
+    # ---- depth == 1: directly visible emitters / environment (path.cpp:34-47)
+    if not scene.hide_emitters:
+        if scene.has_environment:
+            env = emitter.eval_environment(scene, ray["d"], wavelengths, rad)
+            result = result + torch.where((~si["valid"])[None, :], env, 0.0)
+        em_val = emitter.eval_emitter(scene, si["emitter"], si["wi"], si["uv"],
+                                      wavelengths, rad)
+        result = result + torch.where(si["valid"][None, :], em_val, 0.0)
+
+    active = si["valid"]
+    for i in range(n_bounce_iters(scene, depth_cap)):
+        depth = i + 1  # the reference's loop variable
+
+        # -------- draws (unconditional, fixed order) --------
+        u_nee, rng_state = rng.next_2d(rng_state)
+        u_bsdf1, rng_state = rng.next_float32(rng_state)
+        u_bsdf2, rng_state = rng.next_2d(rng_state)
+        u_rr, rng_state = rng.next_float32(rng_state)
+
+        p = bsdf.material_params(scene, si["bsdf"], si["uv"], wavelengths,
+                                 duv=(si["duv_dx"], si["duv_dy"]))
+
+        # -------- NEE (path.cpp:53-67), only from Smooth BSDFs --------
+        ds = emitter.sample_emitter_direct(scene, si["p"], wavelengths, u_nee, rad)
+        nee_possible = active & p["smooth"] & (ds["pdf"] > 0.0)
+        # shadow ray (scene.cpp:90-97); masked lanes get degenerate rays
+        sh_mint = m.RayEpsilon * (1.0 + vec.max_abs(si["p"]))
+        sh_maxt = ds["dist"] * (1.0 - m.ShadowEpsilon)
+        occluded = traverse.ray_test(
+            scene, si["p"], ds["d"],
+            torch.where(nee_possible, sh_mint, 0.0),
+            torch.where(nee_possible, sh_maxt, -1.0),
+        )
+        wo_nee = frame.to_local(si["sh"], ds["d"])
+        f_nee = bsdf.eval_bsdf(p, si["wi"], wo_nee)
+        pdf_nee_bsdf = bsdf.pdf_bsdf(p, si["wi"], wo_nee)
+        mis_w = torch.where(ds["delta"], 1.0, m.mis_power2(ds["pdf"], pdf_nee_bsdf))
+        contrib = throughput * ds["spec"] * f_nee * mis_w[None, :]
+        take = nee_possible & ~occluded
+        result = result + torch.where(take[None, :], contrib, 0.0)
+
+        # -------- BSDF sampling (path.cpp:71-98) --------
+        bs = bsdf.sample_bsdf(p, si["wi"], u_bsdf1, u_bsdf2)
+        wo_world = frame.to_world(si["sh"], bs["wo"])
+        new_mint = inter.spawn_ray_mint(si["p"])
+        next_hit = traverse.intersect(
+            scene, si["p"], wo_world,
+            torch.where(active, new_mint, 0.0),
+            torch.where(active, torch.inf, -1.0),
+            coherent=False,
+        )
+        si_next = inter.compute_interaction(scene, next_hit, si["p"], wo_world, wavelengths)
+
+        throughput = throughput * bs["weight"]
+        eta = eta * bs["eta"]
+
+        # -------- emitter-hit MIS (path.cpp:84-108) --------
+        hit_area = si_next["valid"] & (si_next["emitter"] >= 0)
+        em_val = emitter.eval_emitter(scene, si_next["emitter"], si_next["wi"],
+                                      si_next["uv"], wavelengths, rad)
+        em_pdf_area = emitter.pdf_emitter_direct(
+            scene, si_next["emitter"], wo_world, si_next["t"], si_next["ng"])
+        value = torch.where(hit_area[None, :], em_val, 0.0)
+        em_pdf = torch.where(hit_area, em_pdf_area, 0.0)
+        if scene.has_environment:
+            hit_env = ~si_next["valid"]
+            env_val = emitter.eval_environment(scene, wo_world, wavelengths, rad)
+            value = torch.where(hit_env[None, :], env_val, value)
+            env_ids = torch.full((L,), scene.environment_idx, dtype=torch.int32, device=dev)
+            env_pdf = emitter.pdf_emitter_direct(scene, env_ids, wo_world, si_next["t"],
+                                                 vec.neg(wo_world))
+            em_pdf = torch.where(hit_env, env_pdf, em_pdf)
+            hit_emitter = hit_area | hit_env
+        else:
+            hit_emitter = hit_area
+        em_pdf = torch.where(bs["delta"], 0.0, em_pdf)
+        mis_b = m.mis_power2(bs["pdf"], em_pdf)
+        add = throughput * value * mis_b[None, :]
+        result = result + torch.where((active & hit_emitter)[None, :], add, 0.0)
+
+        # -------- continuation --------
+        active = active & bs["valid"] & si_next["valid"]
+
+        # -------- Russian roulette (path.cpp:116-122) --------
+        if depth + 1 >= scene.rr_depth:
+            q = torch.clamp(throughput.amax(dim=0) * eta * eta, max=0.95)
+            active = active & ~(u_rr >= q)
+            throughput = torch.where(active[None, :],
+                                     throughput / torch.clamp(q, min=1e-8)[None, :],
+                                     throughput)
+        si = si_next
+
+    return result, rng_state

@@ -1,0 +1,43 @@
+"""Shared helpers of the port's parity tests (tests/test_torch_*.py).
+
+Importing this module caps PyTorch's intra-op threads: the suite runs in
+several worker processes at once, and each would otherwise take every core.
+"""
+
+from pathlib import Path
+
+import numpy as np
+import torch
+
+torch.set_num_threads(2)
+
+REPO = Path(__file__).resolve().parents[1]
+SCENES = REPO / "misaki_tpu_torch" / "scenes"
+CBOX_XML = SCENES / "cbox" / "scene.xml"
+FURNACE_XML = SCENES / "furnace.xml"
+
+
+def t(x):
+    """numpy / JAX array -> CPU torch tensor (a copy)."""
+    return torch.from_numpy(np.array(x))
+
+
+def n(x):
+    """torch tensor / JAX array -> numpy."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def golden_criteria(got, want):
+    """The golden-image criteria of tests/test_golden_images.py: each
+    texel's error as a share of the image's maximum; fewer than 2% of texels
+    above 1e-3 and a mean below 1e-3. Returns (frac_off, mean_err)."""
+    scale = max(float(np.abs(want).max()), 1e-3)
+    err = np.abs(np.asarray(got) - np.asarray(want)) / scale
+    return float((err > 1e-3).mean()), float(err.mean())
+
+
+def luminance_y(rgb):
+    rgb = np.asarray(rgb)
+    return 0.212671 * rgb[..., 0] + 0.715160 * rgb[..., 1] + 0.072169 * rgb[..., 2]
