@@ -5,15 +5,25 @@
 
 Phases, one line each; any failure exits non-zero:
   1. a CUDA device is present (name and power limit from nvidia-smi);
-  2. the cluster kernels build from csrc/cluster.cu with nvcc (sm_90a);
-  3. each kernel against its plain PyTorch twin on the card: the bunny
-     stand-in (20,480 faces, 160 clusters) with 2^20 camera-like and 2^20
-     random rays, and the Cornell box with 2^20 camera rays; both times;
-  4. the main path: the in-repo Cornell box at the benchmark spec (256x256,
-     64 spp, 4 bounces, 2^20-lane chunks) through render() on cuda — a
-     warm-up frame, then 3 timed frames with the launch counters reset just
-     before them and checked after; seconds per frame and rays/s;
-  5. a small cbox render on cuda against the same render on the CPU.
+  2. the kernels build from csrc/cluster.cu and csrc/texel_fetch.cu with
+     nvcc (sm_90a), one nvcc per source, started together;
+  3. each cluster kernel against its plain PyTorch twin on the card: the
+     bunny stand-in (20,480 faces, 160 clusters) with 2^20 camera-like and
+     2^20 random rays, and the Cornell box with 2^20 camera rays; both times;
+  4. the cbox main path at the benchmark spec (256x256, 64 spp, 4 bounces,
+     2^20-lane chunks) through render() on cuda — a warm-up frame, then 3
+     timed frames with the launch counters reset just before them and
+     checked after; seconds per frame and rays/s;
+  5. a small cbox render on cuda against the same render on the CPU;
+  6. the texel-fetch kernel against its plain twin at 2^20 lanes: random
+     bilinear taps into the envlit scene's 2048x4096 envmap, and
+     camera-coherent taps into its 1024^2 bitmap with the mip levels spread;
+  7. the envlit main path (the bunny stand-in on a bitmap-textured floor
+     under a 2048x4096 HDR sky, 256x256, 64 spp, 4 bounces) through render()
+     on cuda, as in phase 4, with the launches of all three kernels checked;
+     image checks; a small envlit render on cuda against the CPU;
+  8. the closest-hit stage profile (misaki_tpu_torch.tools.profile_cluster_frame)
+     on the bunny stand-in's camera rays.
 Then one JSON line with the kernels' numbers, and last the result line
 {"ok": true, "device": {...}}. Extra detail goes to chiprun_out/.
 """
@@ -27,10 +37,12 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 OUT_DIR = ROOT / "chiprun_out"
 CBOX_XML = ROOT / "misaki_tpu_torch" / "scenes" / "cbox" / "scene.xml"
+SCENE_BUILD = ROOT / "build" / "scenes" / "envlit"
 
 # benchmark spec of the main path (bench.py:29-67)
 BENCH_W, BENCH_H, BENCH_SPP, BENCH_DEPTH, BENCH_CHUNK = 256, 256, 64, 4, 1 << 20
 N_RAYS = 1 << 20
+N_FRAMES = 3
 
 
 def fail(msg):
@@ -135,6 +147,132 @@ def compare_kernels(acc, o, d, maxt_shadow, label, report):
         fail(f"phase 3 {label}: kernel disagrees with its plain twin")
 
 
+def compare_fetch(table, idx4, w4, label, report):
+    """The texel-fetch kernel vs its plain twin on one tap set: both add the
+    four products in tap order, each rounded, so they must agree bit for
+    bit (the kernel is built without fused multiply-add)."""
+    import torch
+
+    from misaki_tpu_torch.render import texel_fetch as tf
+
+    out_k = tf.fetch4(table, idx4, w4)
+    out_p = tf.fetch4_plain(table, idx4, w4)
+    torch.cuda.synchronize()
+    diff = (out_k - out_p).abs()
+    abs_err = diff.max().item()
+    rel_err = (diff / out_p.abs().clamp(min=1e-30)).max().item()
+    live = ((w4 != 0.0).float().mean()).item()
+    ms = cuda_time_ms(lambda: tf.fetch4(table, idx4, w4), 20)
+    plain_ms = cuda_time_ms(lambda: tf.fetch4_plain(table, idx4, w4), 5)
+    phase("6", f"{label}: lanes={idx4.shape[1]} texels={table.shape[0]} live_taps={live:.4f} "
+               f"max_abs_err={abs_err:.3e} max_rel_err={rel_err:.3e} kernel_ms={ms:.4f} "
+               f"plain_ms={plain_ms:.4f}")
+    report[label] = dict(max_abs_err=abs_err, max_rel_err=rel_err, ms=ms, plain_ms=plain_ms,
+                         lanes=idx4.shape[1], texels=table.shape[0])
+    if abs_err != 0.0:
+        fail(f"phase 6 {label}: the texel-fetch kernel differs from its plain twin")
+
+
+def reset_counts():
+    from misaki_tpu_torch.accel import cluster as cl
+    from misaki_tpu_torch.render import texel_fetch as tf
+
+    cl.closest_launches = 0
+    cl.anyhit_launches = 0
+    tf.fetch_launches = 0
+
+
+def read_counts():
+    from misaki_tpu_torch.accel import cluster as cl
+    from misaki_tpu_torch.render import texel_fetch as tf
+
+    return {"closest": cl.closest_launches, "anyhit": cl.anyhit_launches,
+            "fetch": tf.fetch_launches}
+
+
+def timed_frames(scene, label, want_per_chunk):
+    """A warm-up frame, then N_FRAMES timed frames of `scene` on cuda with
+    every launch count set to 0 just before them and read just after; fails
+    unless the counts are N_FRAMES * chunks * `want_per_chunk`. Returns
+    (last frame's output, seconds per frame, rays/s, launches)."""
+    import torch
+
+    from misaki_tpu_torch.render.driver import render
+
+    n_samples = scene.film_width * scene.film_height * scene.spp
+    n_chunks = -(-n_samples // BENCH_CHUNK)
+    render(scene, seed=0, chunk_size=BENCH_CHUNK, depth_cap=BENCH_DEPTH)  # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    for i in range(N_FRAMES):
+        out = render(scene, seed=i + 1, chunk_size=BENCH_CHUNK, depth_cap=BENCH_DEPTH)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / N_FRAMES
+    launches = read_counts()
+    want = {k: N_FRAMES * n_chunks * v for k, v in want_per_chunk.items()}
+    rays_per_s = n_samples * (1 + 2 * BENCH_DEPTH) / dt
+    phase(label, f"{scene.film_width}x{scene.film_height} {scene.spp} spp depth {BENCH_DEPTH}: "
+                 f"{dt:.4f} s/frame, {rays_per_s:.6e} rays/s ({N_FRAMES} frames, "
+                 f"{n_chunks} chunks of {BENCH_CHUNK}); launches {launches} expected {want}")
+    if launches != want:
+        fail(f"phase {label}: kernel launch counts {launches} != expected {want}")
+    return out, dt, rays_per_s, launches
+
+
+def cuda_vs_cpu(scene_cpu, label):
+    """The same small render on cuda and on the CPU: relative difference of
+    the image means < 0.5%, relative L1 < 2% (the splat adds in atomic order
+    on the card)."""
+    import numpy as np
+
+    from misaki_tpu_torch.render.driver import render
+
+    a = render(scene_cpu.to("cuda"), seed=7, depth_cap=4)["rgb"].cpu().numpy()
+    b = render(scene_cpu, seed=7, depth_cap=4)["rgb"].numpy()
+    mean_rel = float(abs(a.mean() - b.mean()) / max(abs(b.mean()), 1e-12))
+    l1_rel = float(np.abs(a - b).mean() / max(np.abs(b).mean(), 1e-12))
+    phase(label, f"{scene_cpu.film_width}x{scene_cpu.film_height} {scene_cpu.spp} spp cuda vs "
+                 f"cpu: mean rel diff {mean_rel:.3e}, relative L1 {l1_rel:.3e}")
+    if not (mean_rel < 5e-3 and l1_rel < 2e-2):
+        fail(f"phase {label}: cuda render disagrees with the cpu render")
+    return mean_rel, l1_rel
+
+
+def floor_checker_correlation(scene, rgb):
+    """Correlation, over the pixels whose centre ray first hits a bitmap
+    material, between the image's luminance and the light/dark tile of the
+    checker texture the ray lands on (the texture's 8x8 tiles, through the
+    slot's uv transform)."""
+    import torch
+
+    from misaki_tpu_torch.accel import traverse
+    from misaki_tpu_torch.render import driver, interaction
+    from misaki_tpu_torch.render import textures as ptex
+    from misaki_tpu_torch.scene.types import MC_REFL, SPEC_SLOT_COLS
+    from misaki_tpu_torch.scenes.envlit import assets
+
+    W, H = scene.film_width, scene.film_height
+    lane = torch.arange(W * H, dtype=torch.int64, device="cuda") * scene.spp
+    ray, _, _ = driver.primary_rays(scene, lane, 0)
+    hit = traverse.intersect(scene, ray["o"], ray["d"], ray["mint"], ray["maxt"])
+    si = interaction.compute_interaction(scene, hit, ray["o"], ray["d"], ray["wavelengths"])
+    cols = scene.materials.params[:, si["bsdf"].to(torch.int64)]
+    slot = cols[MC_REFL: MC_REFL + SPEC_SLOT_COLS]
+    on_floor = si["valid"] & (torch.abs(slot[0] - ptex.SLOT_BITMAP) < 0.25)
+    u, v = ptex._slot_uv(slot, si["uv"])
+    tiles = assets.CHECKER_TILES
+    iu = torch.floor((u - torch.floor(u)) * tiles)
+    iv = torch.floor((v - torch.floor(v)) * tiles)
+    light = (torch.remainder(iu + iv, 2.0) == 0.0).float()
+    lum = torch.as_tensor(0.212671 * rgb[..., 0] + 0.715160 * rgb[..., 1]
+                          + 0.072169 * rgb[..., 2], device="cuda").reshape(-1)
+    x, y = light[on_floor], lum[on_floor]
+    x, y = x - x.mean(), y - y.mean()
+    corr = (x * y).sum() / torch.sqrt((x * x).sum() * (y * y).sum()).clamp(min=1e-30)
+    return corr.item(), on_floor.float().mean().item()
+
+
 def main():
     import torch
 
@@ -155,19 +293,27 @@ def main():
     import numpy as np
 
     from misaki_tpu_torch.accel import cluster as cl
-    from misaki_tpu_torch.render.driver import render
+    from misaki_tpu_torch.emitter import kernels as em
+    from misaki_tpu_torch.render import driver
+    from misaki_tpu_torch.render import texel_fetch as tf
+    from misaki_tpu_torch.render import textures as ptex
     from misaki_tpu_torch.render.integrator import n_bounce_iters
     from misaki_tpu_torch.scene import procedural
     from misaki_tpu_torch.scene.compiler import load_and_compile
-    from misaki_tpu_torch.render import driver
+    from misaki_tpu_torch.scenes.envlit import assets
+    from misaki_tpu_torch.tools import profile_cluster_frame
+    from misaki_tpu_torch.utils import cuda_build
 
-    # ---- phase 2: build
+    # ---- phase 2: build, one nvcc per source, all started together
     t0 = time.perf_counter()
+    libs = cuda_build.compile_sources([cl.SRC, tf.SRC])
     cl.build()
-    phase("2", f"built {cl.library_path().name} from {cl._SRC.relative_to(ROOT)} "
-               f"in {time.perf_counter() - t0:.2f} s")
+    tf.build()
+    phase("2", f"built {', '.join(p.name for p in libs)} from "
+               f"{cl.SRC.relative_to(ROOT)}, {tf.SRC.relative_to(ROOT)} in "
+               f"{time.perf_counter() - t0:.2f} s")
 
-    # ---- phase 3: kernels vs plain twins
+    # ---- phase 3: cluster kernels vs plain twins
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
     report = {}
@@ -196,29 +342,10 @@ def main():
     compare_kernels(cbox.cluster, torch.stack(ray["o"]), torch.stack(ray["d"]),
                     0.5 * ray["maxt"].clamp(max=2000.0), "cbox_camera", report)
 
-    # ---- phase 4: the main path at the benchmark spec
-    n_samples = BENCH_W * BENCH_H * BENCH_SPP
+    # ---- phase 4: the cbox main path at the benchmark spec
     n_iters = n_bounce_iters(cbox, BENCH_DEPTH)
-    n_chunks = -(-n_samples // BENCH_CHUNK)
-    render(cbox, seed=0, chunk_size=BENCH_CHUNK, depth_cap=BENCH_DEPTH)  # warm-up
-    torch.cuda.synchronize()
-    n_frames = 3
-    cl.closest_launches = 0
-    cl.anyhit_launches = 0
-    t0 = time.perf_counter()
-    for i in range(n_frames):
-        out = render(cbox, seed=i + 1, chunk_size=BENCH_CHUNK, depth_cap=BENCH_DEPTH)
-    torch.cuda.synchronize()
-    dt = (time.perf_counter() - t0) / n_frames
-    launches = {"closest": cl.closest_launches, "anyhit": cl.anyhit_launches}
-    want = {"closest": n_frames * n_chunks * (1 + n_iters),
-            "anyhit": n_frames * n_chunks * n_iters}
-    rays_per_s = n_samples * (1 + 2 * BENCH_DEPTH) / dt
-    phase("4", f"cbox {BENCH_W}x{BENCH_H} {BENCH_SPP} spp depth {BENCH_DEPTH}: "
-               f"{dt:.4f} s/frame, {rays_per_s:.6e} rays/s ({n_frames} frames, "
-               f"{n_chunks} chunks of {BENCH_CHUNK}); launches {launches} expected {want}")
-    if launches != want:
-        fail(f"phase 4: kernel launch counts {launches} != expected {want}")
+    out, dt, rays_per_s, launches_cbox = timed_frames(
+        cbox, "4", {"closest": 1 + n_iters, "anyhit": n_iters, "fetch": 0})
     rgb = out["rgb"].cpu().numpy()
     alpha = out["alpha"].cpu().numpy()
     third = BENCH_W // 3
@@ -236,55 +363,143 @@ def main():
     np.save(OUT_DIR / "cbox_bench_rgb.npy", rgb)
 
     # device-time breakdown of one frame (torch.profiler; CUDA events above)
-    try_profile(cbox, render, dt)
+    profile_cbox = try_profile(cbox, dt, "4", "profile.txt")
 
     # ---- phase 5: cuda vs cpu on a small cbox
-    small = load_and_compile(str(CBOX_XML), spp=16, width=64, height=48)
-    a = render(small.to("cuda"), seed=7, depth_cap=4)["rgb"].cpu().numpy()
-    b = render(small, seed=7, depth_cap=4)["rgb"].numpy()
-    mean_rel = abs(a.mean() - b.mean()) / max(abs(b.mean()), 1e-12)
-    l1_rel = np.abs(a - b).mean() / max(np.abs(b).mean(), 1e-12)
-    phase("5", f"cbox 64x48 16 spp cuda vs cpu: mean rel diff {mean_rel:.3e}, "
-               f"relative L1 {l1_rel:.3e}")
-    if not (mean_rel < 5e-3 and l1_rel < 2e-2):
-        fail("phase 5: cuda render disagrees with the cpu render")
+    cuda_vs_cpu(load_and_compile(str(CBOX_XML), spp=16, width=64, height=48), "5")
+
+    # ---- phase 6: the texel-fetch kernel vs its plain twin at 2^20 lanes
+    t0 = time.perf_counter()
+    envlit_xml = assets.prepared(SCENE_BUILD)
+    envlit = load_and_compile(str(envlit_xml)).to("cuda")
+    phase("6", f"envlit scene {envlit_xml.relative_to(ROOT)}: {envlit.n_faces} faces, "
+               f"{envlit.cluster.n_clusters} clusters, env {tuple(envlit.emitters.env_rgb.shape)}, "
+               f"sampling {tuple(envlit.emitters.env_pmf.shape)}, bitmap texels "
+               f"{envlit.bitmaps.shape[0]}; assets and compile {time.perf_counter() - t0:.2f} s")
+    fetch_report = {}
+    u = torch.rand(N_RAYS, device="cuda", generator=gen)
+    v = torch.rand(N_RAYS, device="cuda", generator=gen)
+    env_table = envlit.emitters.env_rgb.reshape(-1, 3)
+    compare_fetch(env_table, *em.env_taps(envlit, u, v), "env_random", fetch_report)
+    # a 1024^2 raster over the floor's texture (repeated twice, as the
+    # floor's uv transform does), its footprint growing down the rows from
+    # one texel to the whole texture: every mip level in bands of rows
+    side = 1 << 10
+    ij = torch.arange(N_RAYS, device="cuda")
+    x, y = (ij % side).float(), (ij // side).float()
+    W0, _, levels = envlit.bitmap_meta[0]
+    fp = torch.exp2(y / side * len(levels)) / W0
+    zero = torch.zeros_like(fp)
+    taps = ptex.bitmap_taps(envlit, 0, (x + 0.5) / side * 2.0, (y + 0.5) / side * 2.0,
+                            ((fp, zero), (zero, zero)))
+    compare_fetch(envlit.bitmaps, *taps, "bitmap_camera_mips", fetch_report)
+
+    # ---- phase 7: the envlit main path at full size
+    n_iters = n_bounce_iters(envlit, BENCH_DEPTH)
+    n_bitmaps = len(envlit.bitmap_slots) * len(envlit.bitmap_meta)
+    # texel fetches per chunk: the primary escape, then per bounce each
+    # bitmap slot, the envmap's NEE sample and the bounce ray's escape
+    out, dt_env, rays_env, launches_env = timed_frames(
+        envlit, "7", {"closest": 1 + n_iters, "anyhit": n_iters,
+                      "fetch": 1 + n_iters * (n_bitmaps + 2)})
+    rgb = out["rgb"].cpu().numpy()
+    H = rgb.shape[0]
+    top = rgb[: H // 8]
+    corr, floor_share = floor_checker_correlation(envlit, rgb)
+    checks = {
+        "finite": bool(np.isfinite(rgb).all()),
+        "sky_blue_top": bool(top[..., 2].mean() > top[..., 0].mean()),
+        "floor_textured": bool(corr > 0.5 and floor_share > 0.2),
+        "lit": bool(rgb.mean() > 0.05),
+    }
+    phase("7", f"image mean {rgb.mean(axis=(0, 1)).tolist()}, top rows "
+               f"{top.mean(axis=(0, 1)).tolist()}, floor pixels {floor_share:.4f}, "
+               f"luminance-checker correlation {corr:.4f}; checks {checks}")
+    if not all(checks.values()):
+        fail(f"phase 7: image checks failed {checks}")
+    np.save(OUT_DIR / "envlit_bench_rgb.npy", rgb)
+    profile_env = try_profile(envlit, dt_env, "7", "profile_envlit.txt")
+    small = load_and_compile(str(envlit_xml), spp=16, width=64, height=48)
+    env_mean_rel, env_l1_rel = cuda_vs_cpu(small, "7")
+
+    # ---- phase 8: the closest-hit stage profile (kernel #4's counterpart)
+    prof = profile_cluster_frame.profile(reps=20, out=OUT_DIR / "profile_bunny.md")
+    ms = prof["ms"]
+    want_launches = 3 * 21   # real, empty and end-to-end stages, warm-up + 20 each
+    phase("8", f"bunny {prof['rays']} camera rays: schedule {prof['schedule']}; kernel vs plain: "
+               f"prim_equal={prof['prim_equal']:.6f} t_max_abs={prof['t_max_abs']:.3e}, empty "
+               f"schedule prim_equal={prof['prim_equal_empty']:.6f}; ms "
+               + ", ".join(f"{k} {t:.4f}" for k, t in ms.items())
+               + f"; plain {prof['plain_ms']:.4f}; launches {prof['launches']} "
+                 f"expected {want_launches}; table {Path(prof['table']).relative_to(ROOT)}")
+    if not (prof["prim_equal"] >= 0.999 and prof["t_max_abs"] <= 1e-4
+            and prof["prim_equal_empty"] == 1.0):
+        fail("phase 8: the profiled launches disagree with the plain twin")
+    if prof["launches"] != want_launches:
+        fail(f"phase 8: {prof['launches']} closest-hit launches, expected {want_launches}")
 
     main_case = report["cbox_camera"]
+    fa, fb = fetch_report["env_random"], fetch_report["bitmap_camera_mips"]
     kernels = {"kernels": [
         {"name": "cluster_closest_hit", "route": "cuda",
          "source": "misaki_tpu_torch/csrc/cluster.cu",
          "replaces": "misaki_tpu/accel/cluster.py:367",
-         "launches": launches["closest"], "max_abs_err": main_case["t_max_abs"],
+         "launches": launches_cbox["closest"] + launches_env["closest"],
+         "launches_by_path": {"cbox": launches_cbox["closest"], "envlit": launches_env["closest"]},
+         "max_abs_err": main_case["t_max_abs"],
          "ms": main_case["closest_ms"], "plain_ms": main_case["closest_plain_ms"]},
         {"name": "cluster_any_hit", "route": "cuda",
          "source": "misaki_tpu_torch/csrc/cluster.cu",
          "replaces": "misaki_tpu/accel/cluster.py:467",
-         "launches": launches["anyhit"], "max_abs_err": main_case["anyhit_max_abs_err"],
+         "launches": launches_cbox["anyhit"] + launches_env["anyhit"],
+         "launches_by_path": {"cbox": launches_cbox["anyhit"], "envlit": launches_env["anyhit"]},
+         "max_abs_err": main_case["anyhit_max_abs_err"],
          "ms": main_case["anyhit_ms"], "plain_ms": main_case["anyhit_plain_ms"]},
+        {"name": "texel_fetch", "route": "cuda",
+         "source": "misaki_tpu_torch/csrc/texel_fetch.cu",
+         "replaces": "misaki_tpu/render/paged_fetch.py:55",
+         "launches": launches_env["fetch"],
+         "max_abs_err": max(fa["max_abs_err"], fb["max_abs_err"]),
+         "ms": fa["ms"], "plain_ms": fa["plain_ms"],
+         "bitmap_ms": fb["ms"], "bitmap_plain_ms": fb["plain_ms"]},
+        {"name": "cluster_closest_hit_stage_profile", "route": "cuda",
+         "source": "misaki_tpu_torch/tools/profile_cluster_frame.py",
+         "replaces": "tools/profile_cluster_frame.py:124",
+         "launches": prof["launches"], "max_abs_err": prof["t_max_abs"],
+         "ms": ms["closest-hit kernel, real schedule"], "plain_ms": prof["plain_ms"],
+         "empty_schedule_ms": ms["closest-hit kernel, empty schedule"]},
     ]}
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
-        {"device": name, "nvidia_smi": smi_line, "kernels": report,
-         "frame_s": dt, "rays_per_s": rays_per_s}, indent=1))
+        {"device": name, "nvidia_smi": smi_line, "cluster_kernels": report,
+         "texel_fetch": fetch_report, "stage_profile": prof,
+         "cbox": {"frame_s": dt, "rays_per_s": rays_per_s, "launches": launches_cbox,
+                  "profile": profile_cbox},
+         "envlit": {"frame_s": dt_env, "rays_per_s": rays_env, "launches": launches_env,
+                    "profile": profile_env, "checker_corr": corr,
+                    "cuda_vs_cpu": [env_mean_rel, env_l1_rel]}}, indent=1))
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)
 
 
-def try_profile(scene, render, frame_s):
+def try_profile(scene, frame_s, label, table_name):
     """One frame under torch.profiler: device time by kernel, the number of
     kernel launches, and the device's busy share of an unprofiled frame
-    (`frame_s`). The table goes to chiprun_out/profile.txt."""
+    (`frame_s`). The table goes to chiprun_out/`table_name`. Returns the
+    numbers, or None when the profiler recorded no device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from misaki_tpu_torch.render.driver import render
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         render(scene, seed=11, chunk_size=BENCH_CHUNK, depth_cap=BENCH_DEPTH)
         torch.cuda.synchronize()
     events = prof.key_averages()
-    (OUT_DIR / "profile.txt").write_text(events.table(sort_by="self_device_time_total",
-                                                      row_limit=60))
+    (OUT_DIR / table_name).write_text(events.table(sort_by="self_device_time_total",
+                                                   row_limit=60))
 
     def self_time(e):
         return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0)
@@ -292,16 +507,20 @@ def try_profile(scene, render, frame_s):
     kernels = [e for e in events if getattr(e, "device_type", None) == DeviceType.CUDA]
     busy = sum(self_time(e) for e in kernels) / 1e6
     if busy == 0:
-        phase("4", "profile: no device time recorded (not measured)")
-        return
+        phase(label, "profile: no device time recorded (not measured)")
+        return None
     launches = sum(e.count for e in kernels)
     cluster_t = sum(self_time(e) for e in kernels
                     if "closest_hit" in e.key or "any_hit" in e.key) / 1e6
+    fetch_t = sum(self_time(e) for e in kernels if "fetch4" in e.key) / 1e6
     kernels.sort(key=lambda e: -self_time(e))
     top = "; ".join(f"{e.key[:60]} {self_time(e) / 1e3:.3f} ms x{e.count}" for e in kernels[:6])
-    phase("4", f"profile of one frame: {launches} kernel launches, device busy {busy:.4f} s "
-               f"= {busy / frame_s:.3f} of the unprofiled {frame_s:.4f} s frame; cluster kernels "
-               f"{cluster_t:.4f} s = {cluster_t / busy:.3f} of device time; top: {top}")
+    phase(label, f"profile of one frame: {launches} kernel launches, device busy {busy:.4f} s "
+                 f"= {busy / frame_s:.3f} of the unprofiled {frame_s:.4f} s frame; cluster "
+                 f"kernels {cluster_t:.4f} s = {cluster_t / busy:.3f}, texel fetch "
+                 f"{fetch_t:.4f} s = {fetch_t / busy:.3f} of device time; top: {top}")
+    return {"launches": launches, "busy_s": busy, "busy_share": busy / frame_s,
+            "cluster_s": cluster_t, "fetch_s": fetch_t}
 
 
 if __name__ == "__main__":

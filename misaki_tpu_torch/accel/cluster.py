@@ -22,17 +22,12 @@ wins; across clusters the first one visited wins), the same miss encoding.
 """
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-from pathlib import Path
 
 import numpy as np
 import torch
 
 from misaki_tpu_torch.scene.types import ClusterAccel
+from misaki_tpu_torch.utils import cuda_build
 
 CLUSTER_FACES = 128   # faces per cluster (B)
 R_TILE = 256          # rays per tile: one CUDA block, one thread per ray
@@ -44,11 +39,7 @@ _BIG = 3.0e38
 closest_launches = 0
 anyhit_launches = 0
 
-_SRC = Path(__file__).resolve().parents[1] / "csrc" / "cluster.cu"
-_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "misaki_tpu_torch"
-_NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-               "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
-_lib = None
+SRC = cuda_build.CSRC / "cluster.cu"
 
 
 def build_clusters(p0, e1, e2, target=CLUSTER_FACES, face_tab=None):
@@ -304,49 +295,14 @@ def any_hit_plain(rays, tri, order, keys, count):
 # the CUDA kernels: build, bind, launch
 # ---------------------------------------------------------------------------
 
-def _nvcc():
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    return str(Path(cuda_home) / "bin" / "nvcc")
-
-
-def library_path():
-    """Where the kernels' shared library is built: named by the hash of the
-    source and flags, so an edited source is rebuilt."""
-    h = hashlib.sha256(_SRC.read_bytes() + " ".join(_NVCC_FLAGS).encode())
-    return _BUILD_DIR / f"cluster_{h.hexdigest()[:16]}.so"
-
-
 def build():
     """Compile csrc/cluster.cu with nvcc for sm_90a (once per source hash)
     and load it. Returns the ctypes library."""
-    global _lib
-    if _lib is not None:
-        return _lib
-    so = library_path()
-    if not so.exists():
-        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-        os.close(fd)
-        try:
-            subprocess.run([_nvcc(), *_NVCC_FLAGS, "-o", tmp, str(_SRC)],
-                           check=True, capture_output=True, text=True)
-            os.replace(tmp, so)
-        except subprocess.CalledProcessError as e:
-            raise RuntimeError(f"nvcc failed on {_SRC}:\n{e.stderr}") from e
-        finally:
-            if os.path.exists(tmp):
-                os.remove(tmp)
-    lib = ctypes.CDLL(str(so))
     p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.closest_hit_launch.argtypes = [p, i64, p, p, i32, i32, i32, p, p, p, i32, p, p, p]
-    lib.closest_hit_launch.restype = i32
-    lib.any_hit_launch.argtypes = [p, i64, p, i32, i32, p, p, p, i32, p, p]
-    lib.any_hit_launch.restype = i32
-    _lib = lib
-    return lib
+    return cuda_build.load_library(SRC, {
+        "closest_hit_launch": ([p, i64, p, p, i32, i32, i32, p, p, p, i32, p, p, p], i32),
+        "any_hit_launch": ([p, i64, p, i32, i32, p, p, p, i32, p, p], i32),
+    })
 
 
 def _check_inputs(rays, tri, order, keys, count):
@@ -370,12 +326,6 @@ def _check_inputs(rays, tri, order, keys, count):
         raise ValueError("schedule shapes do not match the ray tiles")
 
 
-def _launch(fn, *args):
-    err = fn(*args)
-    if err != 0:
-        raise RuntimeError(f"cluster kernel launch failed: CUDA error {err}")
-
-
 def closest_hit(rays, tri, tab, order, keys, count):
     """Closest hit of packed rays over the cluster tables, walking the
     schedule of `cull_order`. CPU tensors take the plain twin; CUDA tensors
@@ -396,9 +346,10 @@ def closest_hit(rays, tri, tab, order, keys, count):
     out = torch.empty((4, Lp), dtype=torch.float32, device=rays.device)
     fd = torch.empty((T, Lp), dtype=torch.float32, device=rays.device)
     stream = torch.cuda.current_stream(rays.device).cuda_stream
-    _launch(lib.closest_hit_launch, rays.data_ptr(), Lp, tri.data_ptr(), tab.data_ptr(),
-            C, B, T, order.data_ptr(), keys.data_ptr(), count.data_ptr(), MAX_VISITS,
-            out.data_ptr(), fd.data_ptr(), stream)
+    cuda_build.check_launch(lib.closest_hit_launch(
+        rays.data_ptr(), Lp, tri.data_ptr(), tab.data_ptr(), C, B, T, order.data_ptr(),
+        keys.data_ptr(), count.data_ptr(), MAX_VISITS, out.data_ptr(), fd.data_ptr(), stream),
+        "closest-hit kernel")
     closest_launches += 1
     return out, fd
 
@@ -418,9 +369,9 @@ def any_hit(rays, tri, order, keys, count):
     C, B, _ = tri.shape
     out = torch.empty(Lp, dtype=torch.float32, device=rays.device)
     stream = torch.cuda.current_stream(rays.device).cuda_stream
-    _launch(lib.any_hit_launch, rays.data_ptr(), Lp, tri.data_ptr(), C, B,
-            order.data_ptr(), keys.data_ptr(), count.data_ptr(), MAX_VISITS,
-            out.data_ptr(), stream)
+    cuda_build.check_launch(lib.any_hit_launch(
+        rays.data_ptr(), Lp, tri.data_ptr(), C, B, order.data_ptr(), keys.data_ptr(),
+        count.data_ptr(), MAX_VISITS, out.data_ptr(), stream), "any-hit kernel")
     anyhit_launches += 1
     return out
 

@@ -30,6 +30,7 @@ from misaki_tpu_torch.scene.types import (
     MC_KIND,
     MC_REFL,
     MC_TWOSIDED,
+    SCALAR_SLOT_COLS,
     SPEC_SLOT_COLS,
 )
 
@@ -59,11 +60,28 @@ def is_smooth_kind(kind):
     )
 
 
+def spectral_slot(scene, cols, base, uv, wavelengths, duv=None):
+    """The spectral slot at column `base` of the lanes' material columns
+    -> (4, L). Bitmaps are evaluated only for the slots listed in
+    `scene.bitmap_slots`, with the texture footprint `duv`."""
+    sc = scene if base in scene.bitmap_slots else None
+    return tex.eval_spectral_slot(cols[base: base + SPEC_SLOT_COLS], uv, wavelengths,
+                                  scene=sc, duv=duv)
+
+
+def scalar_slot(scene, cols, base, uv, duv=None):
+    """The scalar slot at column `base` of the lanes' material columns
+    -> (L,), without a roughness clamp (the BSDFs that read scalar slots
+    apply their own)."""
+    sc = scene if base in scene.bitmap_slots else None
+    return tex.eval_scalar_slot(cols[base: base + SCALAR_SLOT_COLS], uv, scene=sc, duv=duv)
+
+
 def material_params(scene, ids, uv, wavelengths, duv=None):
     """One indexed load of every lane's packed material column, then the
     slot evaluation. Returns the per-lane param dict shared by
-    sample/eval/pdf for the bounce. `duv` (texture footprints) is accepted
-    for the bitmap slots the JAX package has; this port has none."""
+    sample/eval/pdf for the bounce. `duv` (the primary hit's texture
+    footprint; zeros on bounce hits) selects the bitmap mip level."""
     kinds = scene.bsdf_kinds
     for k in kinds:
         if k not in PORTED_KINDS:
@@ -75,8 +93,7 @@ def material_params(scene, ids, uv, wavelengths, duv=None):
         "kind": kind,
         "kinds": kinds,
         "twosided": cols[MC_TWOSIDED] > 0.5,
-        "reflectance": tex.eval_spectral_slot(
-            cols[MC_REFL: MC_REFL + SPEC_SLOT_COLS], uv, wavelengths),
+        "reflectance": spectral_slot(scene, cols, MC_REFL, uv, wavelengths, duv),
         "smooth": is_smooth_kind(kind),
     }
 

@@ -5,6 +5,8 @@ import torch
 
 Pi = float(np.pi)
 InvPi = 1.0 / Pi
+TwoPi = 2.0 * Pi
+InvTwoPi = 1.0 / TwoPi
 InvFourPi = 1.0 / (4.0 * Pi)
 
 # mathutils.h:19-20 — float32 machine epsilon / 2 scaled up.

@@ -16,12 +16,12 @@ def from_compiled(arrays, device="cpu"):
     numpy arrays (`jax.tree_util.tree_map(np.asarray, scene)`), so both
     packages compute on the very same tables. The cluster accel is built
     here from the first `n_faces` geometry columns, since the JAX scene holds
-    none for small scenes. Takes the object by duck typing: this package
-    never imports the JAX one."""
+    none for small scenes. The env and bitmap tables are taken flat (the
+    bitmap atlas transposed to texel-major), never from the JAX pages.
+    Takes the object by duck typing: this package never imports the JAX
+    one."""
     from misaki_tpu_torch.scene.compiler import cluster_from_geometry
 
-    if len(getattr(arrays, "bitmap_meta", ())):
-        raise NotImplementedError("bitmap texture")
     g, em, cam = arrays.geometry, arrays.emitters, arrays.camera
 
     def a(x, dtype=None):
@@ -34,6 +34,11 @@ def from_compiled(arrays, device="cpu"):
         face_global=a(em.face_global, np.int32), face_cdf=a(em.face_cdf),
         face_pack=a(em.face_pack), area=a(em.area),
         bsphere_center=a(em.bsphere_center), bsphere_radius=np.float32(em.bsphere_radius),
+        env_rgb=a(em.env_rgb, np.float32), env_pmf=a(em.env_pmf, np.float32),
+        env_marg_cdf=a(em.env_marg_cdf, np.float32),
+        env_cond_cdf=a(em.env_cond_cdf, np.float32),
+        env_to_world=a(em.env_to_world, np.float32),
+        env_to_local=a(em.env_to_local, np.float32),
     )
     scene = CompiledScene(
         geometry=geom,
@@ -53,5 +58,7 @@ def from_compiled(arrays, device="cpu"):
         has_environment=arrays.has_environment, environment_idx=arrays.environment_idx,
         emitter_kinds=tuple(arrays.emitter_kinds), bsdf_kinds=tuple(arrays.bsdf_kinds),
         crop_x=arrays.crop_x, crop_y=arrays.crop_y,
+        bitmaps=np.ascontiguousarray(a(arrays.bitmaps, np.float32).T),
+        bitmap_meta=tuple(arrays.bitmap_meta), bitmap_slots=tuple(arrays.bitmap_slots),
     )
     return scene.to(device)

@@ -160,6 +160,15 @@ class EmitterTable(_Tables):
     area: Any           # (E,) float32
     bsphere_center: Any  # (3,) float32
     bsphere_radius: Any  # () float32
+    # Environment map (lat-long HDR, 2D luminance x sin(theta) importance
+    # tables). At most one per scene; scenes without one carry small stubs.
+    # The radiance texels may be finer than the sampling tables.
+    env_rgb: Any        # (He, We, 3) float32 — scaled linear RGB texels
+    env_pmf: Any        # (Hs, Ws) float32 — discrete texel pmf (sums to 1)
+    env_marg_cdf: Any   # (Hs,) float32 — row marginal CDF
+    env_cond_cdf: Any   # (Hs, Ws) float32 — per-row conditional CDF
+    env_to_world: Any   # (3, 3) float32 — rotation part of to_world
+    env_to_local: Any   # (3, 3) float32 — inverse rotation
 
 
 @dataclass(frozen=True)
@@ -198,6 +207,15 @@ class CompiledScene(_Tables):
     bsdf_kinds: tuple = (BSDF_DIFFUSE,)
     crop_x: int = 0
     crop_y: int = 0
+    # Bitmap textures: every texture's mip chain flattened into one
+    # texel-major (Npad, 3) linear-RGB table (the transpose of misaki_tpu's
+    # (3, Npad) atlas); meta is a static tuple of per-texture
+    # (W0, H0, ((offset, W, H), ...per level)).
+    bitmaps: Any = field(default_factory=lambda: np.zeros((8, 3), np.float32))
+    bitmap_meta: tuple = ()
+    # static tuple of material-slot base columns that reference a bitmap;
+    # the other slots skip the texel fetch
+    bitmap_slots: tuple = ()
     device: Any = field(default=torch.device("cpu"))
 
     def to(self, device):

@@ -1,4 +1,5 @@
-"""The CUDA cluster kernels against their plain PyTorch twins, on the card.
+"""The CUDA kernels (cluster closest hit and any hit, texel fetch) against
+their plain PyTorch twins, on the card.
 
 Marked `cuda`: every test skips where no CUDA device is present (a CUDA
 kernel has no CPU mode). Run them on a GPU machine with
@@ -11,7 +12,8 @@ the port need not have; this file imports no JAX.)
 Bounds: face id equal on >= 99.9% of rays, t to rtol 1e-5 and the face row
 exact where the face ids agree, occlusion equal on >= 99.99% of rays. The
 kernels are built without fused multiply-add, so in practice they agree
-bit for bit.
+bit for bit. The texel fetch adds the same rounded products in the same
+order as its twin: equal to the bit.
 """
 
 import numpy as np
@@ -21,9 +23,14 @@ import torch
 from torch_helpers import CBOX_XML
 
 from misaki_tpu_torch.accel import cluster as cl
+from misaki_tpu_torch.emitter import kernels as em
 from misaki_tpu_torch.render import driver
+from misaki_tpu_torch.render import texel_fetch as tf
+from misaki_tpu_torch.render import textures as tex
 from misaki_tpu_torch.scene import procedural
 from misaki_tpu_torch.scene.compiler import load_and_compile
+from misaki_tpu_torch.scenes.envlit import assets
+from misaki_tpu_torch.tools import profile_cluster_frame
 
 pytestmark = pytest.mark.cuda
 
@@ -31,7 +38,7 @@ pytestmark = pytest.mark.cuda
 @pytest.fixture(autouse=True)
 def _needs_cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the cluster kernels have no CPU mode")
+        pytest.skip("needs a CUDA device: the CUDA kernels have no CPU mode")
 
 
 def _soup_acc(F, seed):
@@ -117,3 +124,62 @@ def test_cuda_render_matches_cpu():
     # the splat adds in atomic order on the card
     assert abs(a.mean() - b.mean()) <= 5e-3 * abs(b.mean())
     assert np.abs(a - b).mean() <= 2e-2 * np.abs(b).mean()
+
+
+def _fetch_case(N, L, seed):
+    """An RGB table, taps with a fifth of them dead (w = 0, ids out of range)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    table = 4.0 * torch.rand((N, 3), device="cuda", generator=g) - 1.0
+    idx = torch.randint(0, N, (4, L), device="cuda", generator=g, dtype=torch.int32)
+    w = torch.rand((4, L), device="cuda", generator=g)
+    dead = torch.rand((4, L), device="cuda", generator=g) < 0.2
+    far = torch.where(torch.rand((4, L), device="cuda", generator=g) < 0.5, -5, N + 7)
+    idx = torch.where(dead, far.to(torch.int32), idx)
+    return table, idx.contiguous(), torch.where(dead, 0.0, w).contiguous()
+
+
+@pytest.mark.parametrize("N,L", [(5000, 1 << 20), (5000, 257), (1, 1000), (1 << 23, 4096)])
+def test_fetch4_matches_plain(N, L):
+    table, idx, w = _fetch_case(N, L, L)
+    before = tf.fetch_launches
+    got = tf.fetch4(table, idx, w)
+    assert tf.fetch_launches == before + 1
+    assert torch.equal(got, tf.fetch4_plain(table, idx, w))
+
+
+def test_fetch4_envlit_taps(tmp_path):
+    """Bilinear envmap taps and mip-levelled bitmap taps of a small envlit
+    scene, on the card, equal to the twin."""
+    scene = load_and_compile(str(assets.write_assets(tmp_path, (64, 128), 64))).to("cuda")
+    g = torch.Generator(device="cuda").manual_seed(2)
+    u, v = (torch.rand(1 << 16, device="cuda", generator=g) for _ in range(2))
+    taps = em.env_taps(scene, u, v)
+    env = scene.emitters.env_rgb.reshape(-1, 3)
+    assert torch.equal(tf.fetch4(env, *taps), tf.fetch4_plain(env, *taps))
+    fp = 0.3 * torch.rand(1 << 16, device="cuda", generator=g)
+    zero = torch.zeros_like(fp)
+    taps = tex.bitmap_taps(scene, 0, 3 * u - 1, 3 * v - 1, ((fp, zero), (zero, fp)))
+    assert torch.equal(tf.fetch4(scene.bitmaps, *taps), tf.fetch4_plain(scene.bitmaps, *taps))
+
+
+def test_fetch4_raises_on_mixed_devices():
+    table, idx, w = _fetch_case(100, 64, 0)
+    with pytest.raises(ValueError):
+        tf.fetch4(table.cpu(), idx, w)
+
+
+def test_envlit_cuda_render_matches_cpu(tmp_path):
+    xml = assets.write_assets(tmp_path, (64, 128), 64)
+    scene = load_and_compile(str(xml), spp=4, width=32, height=24)
+    a = driver.render(scene.to("cuda"), seed=3, depth_cap=3)["rgb"].cpu().numpy()
+    b = driver.render(scene, seed=3, depth_cap=3)["rgb"].numpy()
+    assert abs(a.mean() - b.mean()) <= 5e-3 * abs(b.mean())
+    assert np.abs(a - b).mean() <= 2e-2 * np.abs(b).mean()
+
+
+def test_stage_profile(tmp_path):
+    res = profile_cluster_frame.profile(reps=2, out=tmp_path / "p.md")
+    assert res["prim_equal"] >= 0.999 and res["prim_equal_empty"] == 1.0
+    assert res["launches"] == 3 * 3
+    assert all(t > 0 for t in res["ms"].values())
+    assert "empty schedule" in (tmp_path / "p.md").read_text()
