@@ -8,8 +8,12 @@ Phases, one line each; any failure exits non-zero:
   2. the kernels build from csrc/cluster.cu and csrc/texel_fetch.cu with
      nvcc (sm_90a), one nvcc per source, started together;
   3. each cluster kernel against its plain PyTorch twin on the card: the
-     bunny stand-in (20,480 faces, 160 clusters) with 2^20 camera-like and
-     2^20 random rays, and the Cornell box with 2^20 camera rays; both times;
+     bunny stand-in (20,480 faces, 160 clusters; its accel's host build
+     timed) with 2^20 camera-like and 2^20 random rays, the Cornell box with
+     2^20 camera rays, the bunny with every face duplicated into a second
+     set of clusters (every hit an exact tie, which the copy's larger face
+     id must win) and an accel with no faces; both times and each cast's
+     bound;
   4. the cbox main path at the benchmark spec (256x256, 64 spp, 4 bounces,
      2^20-lane chunks) through render() on cuda — a warm-up frame, then 3
      timed frames with the launch counters reset just before them and
@@ -18,12 +22,14 @@ Phases, one line each; any failure exits non-zero:
   6. the texel-fetch kernel against its plain twin at 2^20 lanes: random
      bilinear taps into the envlit scene's 2048x4096 envmap, and
      camera-coherent taps into its 1024^2 bitmap with the mip levels spread;
+     beside it the library call F.embedding_bag on the same taps (timed and
+     checked, never used by the port);
   7. the envlit main path (the bunny stand-in on a bitmap-textured floor
      under a 2048x4096 HDR sky, 256x256, 64 spp, 4 bounces) through render()
      on cuda, as in phase 4, with the launches of all three kernels checked;
      image checks; a small envlit render on cuda against the CPU;
   8. the closest-hit stage profile (misaki_tpu_torch.tools.profile_cluster_frame)
-     on the bunny stand-in's camera rays.
+     on the bunny stand-in's camera rays and on random rays.
 Then one JSON line with the kernels' numbers, and last the result line
 {"ok": true, "device": {...}}. Extra detail goes to chiprun_out/.
 """
@@ -96,18 +102,21 @@ def random_rays(n, lo, hi, gen):
     return o, d
 
 
-def compare_kernels(acc, o, d, maxt_shadow, label, report):
-    """Closest-hit and any-hit kernels vs their plain twins on one ray set."""
+def compare_kernels(acc, o, d, maxt_shadow, label, report, copy_from=None):
+    """Closest-hit and any-hit kernels vs their plain twins on one ray set,
+    with both times and each cast's bound. `copy_from`: the first face id of
+    a copy of the faces before it; the copy must win >= 99.9% of the hits in
+    kernel and twin (every hit is an exact tie, and the larger id wins)."""
     import torch
 
     from misaki_tpu_torch.accel import cluster as cl
+    from misaki_tpu_torch.tools.profile_cluster_frame import any_bound, closest_bound
 
     n = o.shape[1]
     mint = torch.full((n,), 1e-4, device="cuda")
     rays = cl.pack_rays(tuple(o), tuple(d), mint, torch.full((n,), float("inf"), device="cuda"))
-    order, keys, count = cl.cull_order(rays, acc.bounds, acc.n_clusters)
-    out_k, fd_k = cl.closest_hit(rays, acc.tri, acc.tab, order, keys, count)
-    out_p, fd_p = cl.closest_hit_plain(rays, acc.tri, acc.tab, order, keys, count)
+    out_k, fd_k = cl.closest_hit(rays, acc)
+    out_p, fd_p = cl.closest_hit_plain(rays, acc)
     torch.cuda.synchronize()
     prim_k, prim_p = out_k[3], out_p[3]
     same = prim_k == prim_p
@@ -118,30 +127,43 @@ def compare_kernels(acc, o, d, maxt_shadow, label, report):
     t_abs = t_err.max().item() if hit.any() else 0.0
     fd_ok = bool(torch.equal(fd_k[:, same], fd_p[:, same]))
     hit_frac = (prim_p >= 0).float().mean().item()
+    copy_won = None
+    if copy_from is not None:
+        copy_won = [((p[p >= 0] >= copy_from).float().mean().item()) for p in (prim_k, prim_p)]
 
     srays = cl.pack_rays(tuple(o), tuple(d), mint, maxt_shadow)
-    sorder, skeys, scount = cl.cull_order(srays, acc.bounds, acc.n_clusters)
-    occ_k = cl.any_hit(srays, acc.tri, sorder, skeys, scount)
-    occ_p = cl.any_hit_plain(srays, acc.tri, sorder, skeys, scount)
+    occ_k = cl.any_hit(srays, acc)
+    occ_p = cl.any_hit_plain(srays, acc)
     torch.cuda.synchronize()
     occ_frac = (occ_k == occ_p).float().mean().item()
     occ_rate = occ_p.mean().item()
 
-    ms_c = cuda_time_ms(lambda: cl.closest_hit(rays, acc.tri, acc.tab, order, keys, count), 10)
-    ms_cp = cuda_time_ms(lambda: cl.closest_hit_plain(rays, acc.tri, acc.tab, order, keys, count), 1)
-    ms_a = cuda_time_ms(lambda: cl.any_hit(srays, acc.tri, sorder, skeys, scount), 10)
-    ms_ap = cuda_time_ms(lambda: cl.any_hit_plain(srays, acc.tri, sorder, skeys, scount), 1)
+    ms_c = cuda_time_ms(lambda: cl.closest_hit(rays, acc), 10)
+    ms_cp = cuda_time_ms(lambda: cl.closest_hit_plain(rays, acc), 1)
+    ms_a = cuda_time_ms(lambda: cl.any_hit(srays, acc), 10)
+    ms_ap = cuda_time_ms(lambda: cl.any_hit_plain(srays, acc), 1)
+    bc, bc_by = closest_bound(rays, acc, out_p)
+    ba, ba_by = any_bound(srays, acc, occ_p)
+    _, _, count = cl.cull_order(rays, acc.bounds, acc.n_clusters)
     full = (count < 0).float().mean().item()
     visits = count.abs().float().mean().item()
-    phase("3", f"{label}: rays={n} clusters={acc.n_clusters} hit={hit_frac:.4f} "
-               f"full_scan_tiles={full:.4f} mean_visit_list={visits:.2f} | closest: "
-               f"prim_equal={frac:.6f} t_max_rel={t_rel:.3e} fd_exact={fd_ok} "
-               f"kernel_ms={ms_c:.4f} plain_ms={ms_cp:.4f} | any-hit: occluded={occ_rate:.4f} "
-               f"equal={occ_frac:.6f} kernel_ms={ms_a:.4f} plain_ms={ms_ap:.4f}")
+    phase("3", f"{label}: rays={n} clusters={acc.n_clusters} nodes={acc.nodes.shape[0]} "
+               f"hit={hit_frac:.4f} (plain twin's tiles: full_scan={full:.4f} "
+               f"mean_visit_list={visits:.2f}) | closest: prim_equal={frac:.6f} "
+               f"t_max_rel={t_rel:.3e} fd_exact={fd_ok} kernel_ms={ms_c:.4f} "
+               f"plain_ms={ms_cp:.4f} bound_ms={bc:.4f} ({bc_by})"
+               + ("" if copy_won is None else
+                  f" copy_won kernel={copy_won[0]:.6f} plain={copy_won[1]:.6f}")
+               + f" | any-hit: occluded={occ_rate:.4f} equal={occ_frac:.6f} "
+                 f"kernel_ms={ms_a:.4f} plain_ms={ms_ap:.4f} bound_ms={ba:.4f} ({ba_by})")
     ok = frac >= 0.999 and t_rel <= 1e-5 and fd_ok and occ_frac >= 0.9999
+    if copy_won is not None:
+        ok = ok and min(copy_won) >= 0.999
     report[label] = dict(prim_equal=frac, t_max_rel=t_rel, t_max_abs=t_abs, fd_exact=fd_ok,
                          occ_equal=occ_frac, closest_ms=ms_c, closest_plain_ms=ms_cp,
-                         anyhit_ms=ms_a, anyhit_plain_ms=ms_ap,
+                         closest_bound_ms=bc, closest_bound_by=bc_by,
+                         anyhit_ms=ms_a, anyhit_plain_ms=ms_ap, anyhit_bound_ms=ba,
+                         anyhit_bound_by=ba_by, copy_won=copy_won,
                          anyhit_max_abs_err=(occ_k - occ_p).abs().max().item())
     if not ok:
         fail(f"phase 3 {label}: kernel disagrees with its plain twin")
@@ -150,10 +172,15 @@ def compare_kernels(acc, o, d, maxt_shadow, label, report):
 def compare_fetch(table, idx4, w4, label, report):
     """The texel-fetch kernel vs its plain twin on one tap set: both add the
     four products in tap order, each rounded, so they must agree bit for
-    bit (the kernel is built without fused multiply-add)."""
+    bit (the kernel is built without fused multiply-add). Beside them the
+    library call that computes the same sums, F.embedding_bag over the live
+    taps (dead taps: weight 0 on a clamped id), timed and checked to rtol
+    1e-5 (it may add in another order); the port never calls it."""
     import torch
+    import torch.nn.functional as F
 
     from misaki_tpu_torch.render import texel_fetch as tf
+    from misaki_tpu_torch.tools.profile_cluster_frame import bound_ms
 
     out_k = tf.fetch4(table, idx4, w4)
     out_p = tf.fetch4_plain(table, idx4, w4)
@@ -161,16 +188,34 @@ def compare_fetch(table, idx4, w4, label, report):
     diff = (out_k - out_p).abs()
     abs_err = diff.max().item()
     rel_err = (diff / out_p.abs().clamp(min=1e-30)).max().item()
-    live = ((w4 != 0.0).float().mean()).item()
+    N = table.shape[0]
+    live = (w4 != 0.0) & (idx4 >= 0) & (idx4 < N)
+    ids = idx4.T.clamp(0, N - 1).long().contiguous()
+    w = torch.where(live, w4, 0.0).T.contiguous()
+    out_lib = F.embedding_bag(ids, table, per_sample_weights=w, mode="sum")    # (L, 3)
+    lib_err = ((out_lib - out_p.T).abs()
+               / (w.abs()[:, :, None] * table[ids].abs()).sum(1).clamp(min=1e-30)).max().item()
+    live_share = live.float().mean().item()
     ms = cuda_time_ms(lambda: tf.fetch4(table, idx4, w4), 20)
     plain_ms = cuda_time_ms(lambda: tf.fetch4_plain(table, idx4, w4), 5)
-    phase("6", f"{label}: lanes={idx4.shape[1]} texels={table.shape[0]} live_taps={live:.4f} "
-               f"max_abs_err={abs_err:.3e} max_rel_err={rel_err:.3e} kernel_ms={ms:.4f} "
-               f"plain_ms={plain_ms:.4f}")
+    library_ms = cuda_time_ms(
+        lambda: F.embedding_bag(ids, table, per_sample_weights=w, mode="sum"), 20)
+    L = idx4.shape[1]
+    texels = int(torch.unique(idx4[live]).numel())
+    bound, bound_by = bound_ms(L * (16 + 16 + 4 * table.shape[1]) + texels * 4 * table.shape[1],
+                               L * 8 * table.shape[1])
+    phase("6", f"{label}: lanes={L} texels={N} live_taps={live_share:.4f} "
+               f"distinct_live_texels={texels} max_abs_err={abs_err:.3e} "
+               f"max_rel_err={rel_err:.3e} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+               f"bound_ms={bound:.4f} ({bound_by}) embedding_bag_ms={library_ms:.4f} "
+               f"embedding_bag_rel_err={lib_err:.3e}")
     report[label] = dict(max_abs_err=abs_err, max_rel_err=rel_err, ms=ms, plain_ms=plain_ms,
-                         lanes=idx4.shape[1], texels=table.shape[0])
+                         library_ms=library_ms, library_rel_err=lib_err, bound_ms=bound,
+                         bound_by=bound_by, lanes=L, texels=N)
     if abs_err != 0.0:
         fail(f"phase 6 {label}: the texel-fetch kernel differs from its plain twin")
+    if lib_err > 1e-5:
+        fail(f"phase 6 {label}: embedding_bag does not compute the texel fetch's sums")
 
 
 def reset_counts():
@@ -302,6 +347,7 @@ def main():
     from misaki_tpu_torch.scene.compiler import load_and_compile
     from misaki_tpu_torch.scenes.envlit import assets
     from misaki_tpu_torch.tools import profile_cluster_frame
+    from misaki_tpu_torch.tools.tie_case import merge_clusters
     from misaki_tpu_torch.utils import cuda_build
 
     # ---- phase 2: build, one nvcc per source, all started together
@@ -322,20 +368,32 @@ def main():
     tab = np.zeros((36, len(pos)), np.float32)
     tab[0] = np.arange(len(pos))
     tab[1:] = np.random.default_rng(0).normal(size=(35, len(pos)))
-    acc = cl.build_clusters(pos[:, 0].astype(np.float32), (pos[:, 1] - pos[:, 0]).astype(np.float32),
-                            (pos[:, 2] - pos[:, 0]).astype(np.float32), face_tab=tab).to("cuda")
+    t0 = time.perf_counter()
+    acc_host = cl.build_clusters(pos[:, 0].astype(np.float32),
+                                 (pos[:, 1] - pos[:, 0]).astype(np.float32),
+                                 (pos[:, 2] - pos[:, 0]).astype(np.float32), face_tab=tab)
+    build_s = time.perf_counter() - t0
+    acc = acc_host.to("cuda")
+    phase("3", f"bunny accel host build {build_s:.4f} s: {len(pos)} faces, {acc.n_clusters} "
+               f"clusters, {acc.nodes.shape[0]} BVH2 nodes")
+    report["bunny_build_s"] = build_s
     lo = torch.tensor(pos.reshape(-1, 3).min(0), device="cuda", dtype=torch.float32)
     hi = torch.tensor(pos.reshape(-1, 3).max(0), device="cuda", dtype=torch.float32)
     center, extent = 0.5 * (lo + hi), (hi - lo).max()
-    o, d = camera_like_rays(N_RAYS, center, extent, gen)
-    compare_kernels(acc, o, d, torch.full((N_RAYS,), 3.0 * float(extent), device="cuda"),
-                    "bunny_camera", report)
+    cam_o, cam_d = camera_like_rays(N_RAYS, center, extent, gen)
+    cam_maxt = torch.full((N_RAYS,), 3.0 * float(extent), device="cuda")
+    compare_kernels(acc, cam_o, cam_d, cam_maxt, "bunny_camera", report)
     o, d = random_rays(N_RAYS, lo - 0.2 * extent, hi + 0.2 * extent, gen)
     compare_kernels(acc, o, d, extent * torch.rand(N_RAYS, device="cuda", generator=gen),
                     "bunny_random", report)
+    # every face twice, in two sets of clusters: each hit an exact tie
+    compare_kernels(merge_clusters(acc_host, acc_host).to("cuda"), cam_o, cam_d, cam_maxt,
+                    "bunny_duplicated_ties", report, copy_from=len(pos))
+    compare_kernels(profile_cluster_frame.empty_tree(36), cam_o, cam_d, cam_maxt,
+                    "empty_accel", report)
 
     cbox = load_and_compile(str(CBOX_XML), spp=BENCH_SPP, width=BENCH_W,
-                            height=BENCH_H).replace(max_depth=BENCH_DEPTH + 1).to("cuda")
+                            height=BENCH_H).replace(max_depth=BENCH_DEPTH + 1)
     # the third of the frame's four 2^20-lane chunks (rows 128-191)
     lane = torch.arange(N_RAYS, dtype=torch.int64, device="cuda") + 2 * BENCH_CHUNK
     ray, _, _ = driver.primary_rays(cbox, lane, 0)
@@ -366,12 +424,12 @@ def main():
     profile_cbox = try_profile(cbox, dt, "4", "profile.txt")
 
     # ---- phase 5: cuda vs cpu on a small cbox
-    cuda_vs_cpu(load_and_compile(str(CBOX_XML), spp=16, width=64, height=48), "5")
+    cuda_vs_cpu(load_and_compile(str(CBOX_XML), spp=16, width=64, height=48, device="cpu"), "5")
 
     # ---- phase 6: the texel-fetch kernel vs its plain twin at 2^20 lanes
     t0 = time.perf_counter()
     envlit_xml = assets.prepared(SCENE_BUILD)
-    envlit = load_and_compile(str(envlit_xml)).to("cuda")
+    envlit = load_and_compile(str(envlit_xml))
     phase("6", f"envlit scene {envlit_xml.relative_to(ROOT)}: {envlit.n_faces} faces, "
                f"{envlit.cluster.n_clusters} clusters, env {tuple(envlit.emitters.env_rgb.shape)}, "
                f"sampling {tuple(envlit.emitters.env_pmf.shape)}, bitmap texels "
@@ -419,55 +477,75 @@ def main():
         fail(f"phase 7: image checks failed {checks}")
     np.save(OUT_DIR / "envlit_bench_rgb.npy", rgb)
     profile_env = try_profile(envlit, dt_env, "7", "profile_envlit.txt")
-    small = load_and_compile(str(envlit_xml), spp=16, width=64, height=48)
+    small = load_and_compile(str(envlit_xml), spp=16, width=64, height=48, device="cpu")
     env_mean_rel, env_l1_rel = cuda_vs_cpu(small, "7")
 
     # ---- phase 8: the closest-hit stage profile (kernel #4's counterpart)
     prof = profile_cluster_frame.profile(reps=20, out=OUT_DIR / "profile_bunny.md")
     ms = prof["ms"]
-    want_launches = 3 * 21   # real, empty and end-to-end stages, warm-up + 20 each
-    phase("8", f"bunny {prof['rays']} camera rays: schedule {prof['schedule']}; kernel vs plain: "
-               f"prim_equal={prof['prim_equal']:.6f} t_max_abs={prof['t_max_abs']:.3e}, empty "
-               f"schedule prim_equal={prof['prim_equal_empty']:.6f}; ms "
+    want_launches = 4 * 21   # camera, empty-tree, end-to-end and random stages, 1 + 20 each
+    phase("8", f"bunny {prof['rays']} camera and random rays: traversal {prof['traversal']}; "
+               f"kernel vs plain: prim_equal={prof['prim_equal']:.6f} "
+               f"t_max_abs={prof['t_max_abs']:.3e}, empty tree "
+               f"prim_equal={prof['prim_equal_empty']:.6f}, random rays "
+               f"prim_equal={prof['prim_equal_random']:.6f}; ms "
                + ", ".join(f"{k} {t:.4f}" for k, t in ms.items())
-               + f"; plain {prof['plain_ms']:.4f}; launches {prof['launches']} "
-                 f"expected {want_launches}; table {Path(prof['table']).relative_to(ROOT)}")
+               + f"; plain {prof['plain_ms']:.4f}; bound {prof['bound_ms']}; launches "
+                 f"{prof['launches']} expected {want_launches}; table "
+                 f"{Path(prof['table']).relative_to(ROOT)}")
     if not (prof["prim_equal"] >= 0.999 and prof["t_max_abs"] <= 1e-4
-            and prof["prim_equal_empty"] == 1.0):
+            and prof["prim_equal_empty"] == 1.0 and prof["prim_equal_random"] >= 0.999):
         fail("phase 8: the profiled launches disagree with the plain twin")
     if prof["launches"] != want_launches:
         fail(f"phase 8: {prof['launches']} closest-hit launches, expected {want_launches}")
 
     main_case = report["cbox_camera"]
     fa, fb = fetch_report["env_random"], fetch_report["bitmap_camera_mips"]
+
+    def per_frame(key):
+        return {"cbox": launches_cbox[key] / N_FRAMES, "envlit": launches_env[key] / N_FRAMES}
+
     kernels = {"kernels": [
         {"name": "cluster_closest_hit", "route": "cuda",
          "source": "misaki_tpu_torch/csrc/cluster.cu",
          "replaces": "misaki_tpu/accel/cluster.py:367",
          "launches": launches_cbox["closest"] + launches_env["closest"],
-         "launches_by_path": {"cbox": launches_cbox["closest"], "envlit": launches_env["closest"]},
+         "launches_per_frame": per_frame("closest"),
          "max_abs_err": main_case["t_max_abs"],
-         "ms": main_case["closest_ms"], "plain_ms": main_case["closest_plain_ms"]},
+         "ms": main_case["closest_ms"], "plain_ms": main_case["closest_plain_ms"],
+         "bound_ms": main_case["closest_bound_ms"], "bound_by": main_case["closest_bound_by"],
+         "library_ms": None},
         {"name": "cluster_any_hit", "route": "cuda",
          "source": "misaki_tpu_torch/csrc/cluster.cu",
          "replaces": "misaki_tpu/accel/cluster.py:467",
          "launches": launches_cbox["anyhit"] + launches_env["anyhit"],
-         "launches_by_path": {"cbox": launches_cbox["anyhit"], "envlit": launches_env["anyhit"]},
+         "launches_per_frame": per_frame("anyhit"),
          "max_abs_err": main_case["anyhit_max_abs_err"],
-         "ms": main_case["anyhit_ms"], "plain_ms": main_case["anyhit_plain_ms"]},
+         "ms": main_case["anyhit_ms"], "plain_ms": main_case["anyhit_plain_ms"],
+         "bound_ms": main_case["anyhit_bound_ms"], "bound_by": main_case["anyhit_bound_by"],
+         "library_ms": None},
         {"name": "texel_fetch", "route": "cuda",
          "source": "misaki_tpu_torch/csrc/texel_fetch.cu",
          "replaces": "misaki_tpu/render/paged_fetch.py:55",
          "launches": launches_env["fetch"],
+         "launches_per_frame": per_frame("fetch"),
          "max_abs_err": max(fa["max_abs_err"], fb["max_abs_err"]),
          "ms": fa["ms"], "plain_ms": fa["plain_ms"],
-         "bitmap_ms": fb["ms"], "bitmap_plain_ms": fb["plain_ms"]},
+         "bound_ms": fa["bound_ms"], "bound_by": fa["bound_by"], "library_ms": fa["library_ms"],
+         "bitmap_ms": fb["ms"], "bitmap_plain_ms": fb["plain_ms"],
+         "bitmap_bound_ms": fb["bound_ms"], "bitmap_library_ms": fb["library_ms"]},
         {"name": "cluster_closest_hit_stage_profile", "route": "cuda",
          "source": "misaki_tpu_torch/tools/profile_cluster_frame.py",
          "replaces": "tools/profile_cluster_frame.py:124",
-         "launches": prof["launches"], "max_abs_err": prof["t_max_abs"],
-         "ms": ms["closest-hit kernel, real schedule"], "plain_ms": prof["plain_ms"],
-         "empty_schedule_ms": ms["closest-hit kernel, empty schedule"]},
+         # a tool, never on a frame's path: kernel #1's launches per frame are
+         # cluster_closest_hit's
+         "launches": prof["launches"], "launches_per_frame": None,
+         "max_abs_err": prof["t_max_abs"],
+         "ms": ms["closest-hit kernel, camera rays"], "plain_ms": prof["plain_ms"],
+         "bound_ms": prof["bound_ms"]["camera"], "bound_by": prof["bound_by"]["camera"],
+         "library_ms": None,
+         "empty_tree_ms": ms["closest-hit kernel, empty tree"],
+         "random_rays_ms": ms["closest-hit kernel, random rays"]},
     ]}
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
         {"device": name, "nvidia_smi": smi_line, "cluster_kernels": report,
@@ -510,17 +588,27 @@ def try_profile(scene, frame_s, label, table_name):
         phase(label, "profile: no device time recorded (not measured)")
         return None
     launches = sum(e.count for e in kernels)
-    cluster_t = sum(self_time(e) for e in kernels
-                    if "closest_hit" in e.key or "any_hit" in e.key) / 1e6
-    fetch_t = sum(self_time(e) for e in kernels if "fetch4" in e.key) / 1e6
+
+    def named(part):
+        """Device seconds and launches of the kernels whose name holds `part`."""
+        sel = [e for e in kernels if part in e.key]
+        return sum(self_time(e) for e in sel) / 1e6, sum(e.count for e in sel)
+
+    (closest_t, n_closest), (any_t, n_any) = named("closest_hit"), named("any_hit")
+    cluster_t = closest_t + any_t
+    fetch_t, _ = named("fetch4")
     kernels.sort(key=lambda e: -self_time(e))
     top = "; ".join(f"{e.key[:60]} {self_time(e) / 1e3:.3f} ms x{e.count}" for e in kernels[:6])
+    cast_ms = {"closest": 1e3 * closest_t / max(n_closest, 1), "anyhit": 1e3 * any_t / max(n_any, 1)}
     phase(label, f"profile of one frame: {launches} kernel launches, device busy {busy:.4f} s "
                  f"= {busy / frame_s:.3f} of the unprofiled {frame_s:.4f} s frame; cluster "
-                 f"kernels {cluster_t:.4f} s = {cluster_t / busy:.3f}, texel fetch "
-                 f"{fetch_t:.4f} s = {fetch_t / busy:.3f} of device time; top: {top}")
+                 f"kernels {cluster_t:.4f} s = {cluster_t / busy:.3f} of device time (closest "
+                 f"hit {closest_t:.4f} s over {n_closest} launches, {cast_ms['closest']:.4f} ms "
+                 f"each; any hit {any_t:.4f} s over {n_any}, {cast_ms['anyhit']:.4f} ms each), "
+                 f"texel fetch {fetch_t:.4f} s = {fetch_t / busy:.3f}; top: {top}")
     return {"launches": launches, "busy_s": busy, "busy_share": busy / frame_s,
-            "cluster_s": cluster_t, "fetch_s": fetch_t}
+            "cluster_s": cluster_t, "cluster_share": cluster_t / busy, "fetch_s": fetch_t,
+            "cast_ms": cast_ms}
 
 
 if __name__ == "__main__":

@@ -1,24 +1,37 @@
-"""Cluster-BVH intersection: host build, visit schedule, and the closest-hit
-and any-hit kernels with their plain PyTorch twins.
+"""Cluster-BVH intersection: host build, the closest-hit and any-hit kernels,
+and their plain PyTorch twins.
 
   * **Build (host, NumPy)**: recursive largest-extent splits of the faces
-    into clusters of `CLUSTER_FACES` triangles, packed into a dense
-    (C, B, 10) table [p0, e1, e2, face_id] plus the face table in cluster
-    order (C, T, B) and the cluster AABBs (8, Cpad).
-  * **Schedule (`cull_order`, plain torch)**: the wavefront is cut into tiles
-    of `R_TILE` consecutive rays. Each tile's rays are bounded by component
-    intervals, every cluster AABB is tested against them with interval
-    arithmetic, and the clusters the tile can reach are sorted front to back
-    by a conservative entry distance (the key).
-  * **Walk (`closest_hit` / `any_hit`)**: each tile walks its visit list,
-    running dense Moller-Trumbore over each visited cluster's faces, and
-    stops once no ray of the tile can find a nearer hit behind the next key.
+    into clusters of `CLUSTER_FACES` triangles, packed into misaki_tpu's
+    tables: a dense (C, B, 10) face table [p0, e1, e2, face_id], the face
+    table in cluster order (C, T, B) and the cluster AABBs (8, Cpad). The
+    recursion, recorded, is the top of a BVH2 that goes on with the same
+    split rule inside each cluster down to leaves of `LEAF_FACES` faces
+    (`nodes`, `leaf_tri`).
+  * **Kernels (`closest_hit` / `any_hit` on CUDA tensors, csrc/cluster.cu)**:
+    one thread per ray walks the BVH2 with a stack of its own.
+  * **Twins (`closest_hit_plain` / `any_hit_plain`, the CPU path)**:
+    misaki_tpu's tile walk over the cluster tables. The wavefront is cut
+    into tiles of `R_TILE` rays, `cull_order` sorts the clusters each tile
+    can reach front to back, and each tile runs dense Moller-Trumbore over
+    its list until no later cluster can hold a nearer hit.
 
-On a CUDA tensor the walk is `csrc/cluster.cu`; on a CPU tensor it is the
-plain twin below, which computes the same walk with tensor ops. The twins are
-the kernels' oracles, and both follow `misaki_tpu.accel.cluster` exactly: the
-same schedule, the same tie rules (inside a cluster the largest face id
-wins; across clusters the first one visited wins), the same miss encoding.
+Kernel and twin compute one function, the exact lexicographic closest hit:
+the smallest t wins, and among equal t the largest face id, whatever order
+the faces are visited in. (misaki_tpu lets the first cluster visited win a
+tie across clusters; that rule depends on the walk's order, which a per-ray
+traversal does not share. t is the same either way.) Misses give t = 3e38
+(inf at the entry points), face id -1 and an all-zero face row.
+
+Moller-Trumbore is not watertight: rounding lets it accept a ray that passes
+just outside a face, so a box that holds the face exactly can still be
+missed by a ray the face test accepts (a ray with a zero direction component
+in the plane of a ring of vertices does this). Both sides therefore grow
+every box they prune with: the kernels by `PAD` * (the ray's largest
+|origin component| + the scene's largest |coordinate|, node 0's copy), the
+twins' cull by the same pad taken at the launch's farthest origin and the
+cluster boxes' largest |coordinate|. misaki_tpu grows no box,
+so on such rays it can miss a face the port finds, a t an ulp or so nearer.
 """
 
 import ctypes
@@ -30,7 +43,10 @@ from misaki_tpu_torch.scene.types import ClusterAccel
 from misaki_tpu_torch.utils import cuda_build
 
 CLUSTER_FACES = 128   # faces per cluster (B)
-R_TILE = 256          # rays per tile: one CUDA block, one thread per ray
+LEAF_FACES = 4        # faces per BVH2 leaf (at most 7: the leaf ref's count bits)
+STACK_DEPTH = 64      # stack entries per thread; the launchers refuse a larger need
+PAD = 2.0 ** -14      # box growth per unit of origin and scene reach; passed to the kernels
+R_TILE = 256          # rays per tile of the plain walk; packed rays are a multiple
 MAX_VISITS = 128      # visit-list cap per tile; overflow -> full scan
 _BIG = 3.0e38
 
@@ -42,11 +58,23 @@ anyhit_launches = 0
 SRC = cuda_build.CSRC / "cluster.cu"
 
 
+def _split(idx, cen, target):
+    """The split rule of both levels: order `idx` along the largest extent
+    of its centroids and cut at the `target`-multiple nearest the median."""
+    c = cen[idx]
+    ax = int(np.argmax(c.max(axis=0) - c.min(axis=0)))
+    o = np.argsort(c[:, ax], kind="stable")
+    mid = int(round(len(idx) / 2 / target)) * target
+    mid = min(max(mid, target), len(idx) - 1)
+    return idx[o[:mid]], idx[o[mid:]]
+
+
 def build_clusters(p0, e1, e2, target=CLUSTER_FACES, face_tab=None):
-    """Host-side cluster build: recursive largest-extent splits, each at the
-    `target`-multiple nearest the median, so every leaf but one ragged tail
-    per chain holds exactly `target` faces (the `balanced` packer of
-    misaki_tpu.accel.cluster.build_clusters, with the same output)."""
+    """Host-side build. The cluster tables are misaki_tpu's: recursive
+    largest-extent splits, each at the `target`-multiple nearest the median,
+    so every cluster but one ragged tail per chain holds exactly `target`
+    faces (the `balanced` packer of misaki_tpu.accel.cluster.build_clusters,
+    with the same output). The recursion is kept as the top of the BVH2."""
     F = len(p0)
     v0 = np.asarray(p0, np.float64)
     e1 = np.asarray(e1, np.float64)
@@ -57,19 +85,16 @@ def build_clusters(p0, e1, e2, target=CLUSTER_FACES, face_tab=None):
     cen = 0.5 * (tri_lo + tri_hi)
 
     clusters = []
-    stack = [np.arange(F)]
-    while stack:
-        idx = stack.pop()
+
+    def split(idx):
+        """Cluster tree of `idx`: a cluster id, or a (left, right) pair."""
         if len(idx) <= target:
             clusters.append(idx)
-            continue
-        c = cen[idx]
-        ax = int(np.argmax(c.max(axis=0) - c.min(axis=0)))
-        o = np.argsort(c[:, ax], kind="stable")
-        mid = int(round(len(idx) / 2 / target)) * target
-        mid = min(max(mid, target), len(idx) - 1)
-        stack.append(idx[o[mid:]])
-        stack.append(idx[o[:mid]])
+            return len(clusters) - 1
+        left, right = _split(idx, cen, target)
+        return split(left), split(right)
+
+    tree = split(np.arange(F))
 
     C = len(clusters)
     Cpad = max(-(-C // 128) * 128, 128)
@@ -83,6 +108,8 @@ def build_clusters(p0, e1, e2, target=CLUSTER_FACES, face_tab=None):
     bounds[6:8, :] = 0.0
     for ci, idx in enumerate(clusters):
         n = len(idx)
+        if n == 0:        # no faces at all: one empty cluster, a padded box
+            continue
         tri[ci, :n, 0:3] = v0[idx]
         tri[ci, :n, 3:6] = e1[idx]
         tri[ci, :n, 6:9] = e2[idx]
@@ -91,11 +118,108 @@ def build_clusters(p0, e1, e2, target=CLUSTER_FACES, face_tab=None):
             tab[ci, :, :n] = np.asarray(face_tab)[:, idx]
         bounds[0:3, ci] = tri_lo[idx].min(axis=0)
         bounds[3:6, ci] = tri_hi[idx].max(axis=0)
-    return ClusterAccel(bounds=bounds, tri=tri, tab=tab, n_clusters=C)
+    nodes, leaf_tri = build_bvh(tri, tree)
+    return ClusterAccel(bounds=bounds, tri=tri, tab=tab, nodes=nodes, leaf_tri=leaf_tri,
+                        n_clusters=C)
+
+
+def _round_out(x, toward):
+    """float64 -> float32, rounded toward `toward` (+-inf) where inexact."""
+    y = x.astype(np.float32)
+    off = y < x if toward > 0 else y > x
+    return np.where(off, np.nextafter(y, np.float32(toward)), y)
+
+
+def build_bvh(tri, tree):
+    """The BVH2 over a (C, B, 10) cluster table. `tree` (a cluster id, or a
+    (left, right) pair of trees) gives the top levels; inside each cluster
+    the split rule of `build_clusters` goes on down to leaves of at most
+    `LEAF_FACES` faces. Boxes are computed in float64 from the float32 faces
+    and rounded outward to float32. Returns numpy (nodes (N, 16) float32,
+    leaf_tri (F, 12) float32) in the layout of `ClusterAccel`; node 0 is the
+    root and always an inner node, and its column 14 holds the largest
+    |coordinate| of any vertex (rounded up), the scale of the kernels'
+    spatial pad."""
+    C, B, _ = tri.shape
+    t64 = tri.reshape(C * B, 10).astype(np.float64)
+    v0 = t64[:, 0:3]
+    v1, v2 = v0 + t64[:, 3:6], v0 + t64[:, 6:9]
+    f_lo = np.minimum(np.minimum(v0, v1), v2)      # by flat (cluster, slot) id
+    f_hi = np.maximum(np.maximum(v0, v1), v2)
+    cen = 0.5 * (f_lo + f_hi)
+    live = tri[:, :, 9].reshape(-1) >= 0.0
+    empty_box = (np.full(3, np.inf), np.full(3, -np.inf))
+    children = []      # per inner node: its two children (ref, lo, hi)
+    leaf_ids = []      # flat (cluster, slot) ids of the faces in leaf order
+    depth = 0
+
+    def leaf(ids):
+        start = len(leaf_ids)
+        leaf_ids.extend(ids.tolist())
+        lo, hi = (f_lo[ids].min(axis=0), f_hi[ids].max(axis=0)) if len(ids) else empty_box
+        return ~(start * 8 + len(ids)), lo, hi
+
+    def inner(level, make_left, make_right):
+        nonlocal depth
+        depth = max(depth, level + 1)
+        i = len(children)
+        children.append(None)
+        a, b = make_left(), make_right()
+        children[i] = (a, b)
+        return i, np.minimum(a[1], b[1]), np.maximum(a[2], b[2])
+
+    def faces(ids, level):
+        if len(ids) <= LEAF_FACES:
+            return leaf(ids)
+        left, right = _split(ids, cen, LEAF_FACES)
+        return inner(level, lambda: faces(left, level + 1), lambda: faces(right, level + 1))
+
+    def top(t, level):
+        if isinstance(t, tuple):
+            return inner(level, lambda: top(t[0], level + 1), lambda: top(t[1], level + 1))
+        return faces(t * B + np.nonzero(live[t * B:(t + 1) * B])[0], level)
+
+    root = top(tree, 0)
+    if root[0] < 0:                     # one leaf: the root holds it beside an empty child
+        children, depth = [(root, leaf(np.zeros(0, np.int64)))], 1
+    if depth > STACK_DEPTH:
+        raise ValueError(f"BVH depth {depth} exceeds the kernels' stack of {STACK_DEPTH}")
+
+    N = len(children)
+    ref = np.array([[a[0], b[0]] for a, b in children], np.int64).reshape(N, 2)
+    lo = np.array([[a[1], b[1]] for a, b in children], np.float64).reshape(N, 2, 3)
+    hi = np.array([[a[2], b[2]] for a, b in children], np.float64).reshape(N, 2, 3)
+    lo32, hi32 = _round_out(lo, -np.inf), _round_out(hi, np.inf)
+    empty = ~(lo <= hi).all(axis=2)
+    lo32[empty] = np.inf                # a +inf box: every ray misses it
+    hi32[empty] = np.inf
+    nodes = np.zeros((N, 16), np.float32)
+    for k in range(2):
+        nodes[:, 4 * k + 0] = lo32[:, k, 0]
+        nodes[:, 4 * k + 1] = hi32[:, k, 0]
+        nodes[:, 4 * k + 2] = lo32[:, k, 1]
+        nodes[:, 4 * k + 3] = hi32[:, k, 1]
+        nodes[:, 8 + 2 * k] = lo32[:, k, 2]
+        nodes[:, 9 + 2 * k] = hi32[:, k, 2]
+    nodes.view(np.int32)[:, 12:14] = ref
+    if live.any():
+        reach = np.maximum(np.abs(f_lo[live]), np.abs(f_hi[live])).max()
+        nodes[0, 14] = _round_out(np.array(reach), np.inf)
+
+    order = np.asarray(leaf_ids, np.int64)
+    flat = tri.reshape(C * B, 10)[order]
+    leaf_tri = np.zeros((len(order), 12), np.float32)
+    leaf_tri[:, 0:3] = flat[:, 0:3]
+    leaf_tri[:, 3] = flat[:, 9]
+    leaf_tri[:, 4:7] = flat[:, 3:6]
+    leaf_tri[:, 8:11] = flat[:, 6:9]
+    leaf_tri.view(np.int32)[:, 7] = order // B
+    leaf_tri.view(np.int32)[:, 11] = order % B
+    return nodes, leaf_tri
 
 
 # ---------------------------------------------------------------------------
-# ray packing and the visit schedule (plain torch on every device)
+# ray packing and the plain twins' visit schedule
 # ---------------------------------------------------------------------------
 
 def _safe_rcp(c):
@@ -115,13 +239,13 @@ def pack_rays(o, d, mint, maxt):
 
 
 def cull_order(rays, bounds, n_clusters):
-    """Per-tile cluster cull and front-to-back visit order
+    """Per-tile cluster cull and front-to-back visit order of the plain walk
     (misaki_tpu.accel.cluster._cull_order with R_TILE tiles).
 
     rays: (8, Lp); bounds: (8, Cpad). Returns order (nt, MAX_VISITS) int32,
     keys (nt, MAX_VISITS) float32 (sorted entry distances) and count (nt,)
     int32, negative when the tile reaches more than MAX_VISITS clusters (the
-    kernels then scan every cluster in id order)."""
+    walk then scans every cluster in id order)."""
     nt = rays.shape[1] // R_TILE
     rv = rays.reshape(8, nt, R_TILE)
     inv = _safe_rcp(rv[3:6])
@@ -192,10 +316,33 @@ def _mt(r, blk, t_cap):
     return t, u, v, hit
 
 
-def closest_hit_plain(rays, tri, tab, order, keys, count):
-    """Plain twin of the closest-hit kernel. Returns out (4, Lp) rows
-    [t (3e38 on miss), u, v, face id (-1 on miss)] and fd (T, Lp), the
-    winner's face-table row (zeros on miss)."""
+def scene_reach(bounds, n_clusters):
+    """The largest |coordinate| of the live cluster boxes (0 when there are
+    none): the twins' own measure of the scene's reach, from misaki_tpu's
+    tables and not from the BVH2."""
+    b = bounds[0:6, :n_clusters]
+    live = b[0:3] <= b[3:6]
+    return torch.where(torch.cat([live, live]), b.abs(), 0.0).amax()
+
+
+def grown_bounds(rays, acc):
+    """The cluster boxes (8, Cpad) grown by the kernels' pad at the farthest
+    origin of `rays`, so no box is narrower than any ray's box in the kernel.
+    Padded clusters stay empty."""
+    pad = PAD * (rays[0:3].abs().amax() + scene_reach(acc.bounds, acc.n_clusters))
+    b = acc.bounds.clone()
+    b[0:3] -= pad
+    b[3:6] += pad
+    return b
+
+
+def closest_hit_plain(rays, acc):
+    """Plain twin of the closest-hit kernel: misaki_tpu's tile walk over the
+    schedule of `cull_order` on the grown boxes, with the lexicographic tie
+    rule. Returns out (4, Lp) rows [t (3e38 on miss), u, v, face id (-1 on
+    miss)] and fd (T, Lp), the winner's face-table row (zeros on miss)."""
+    tri, tab = acc.tri, acc.tab
+    order, keys, count = cull_order(rays, grown_bounds(rays, acc), acc.n_clusters)
     Lp = rays.shape[1]
     nt = Lp // R_TILE
     C, B, _ = tri.shape
@@ -220,7 +367,8 @@ def closest_hit_plain(rays, tri, tab, order, keys, count):
         alive = torch.ones(m, dtype=torch.bool, device=dev)
         for k in range(int(n.max())):
             kk = min(k, MAX_VISITS - 1)
-            open_ = full | (keys[s:e, kk] < t_b.amax(dim=1))
+            # a cluster whose entry equals the committed t can still hold a tie
+            open_ = full | (keys[s:e, kk] <= t_b.amax(dim=1))
             alive = alive & (k < n) & open_
             idx = alive.nonzero().squeeze(1)
             if idx.numel() == 0:
@@ -231,19 +379,21 @@ def closest_hit_plain(rays, tri, tab, order, keys, count):
             t_i = t_b[idx]
             t, u, v, hit = _mt(r[:, idx], blk, t_i)
             fid = blk[:, :, 9:10]
-            tm = torch.where(hit & (fid >= 0.0), t, _BIG)
+            live = hit & (fid >= 0.0)
+            tm = torch.where(live, t, _BIG)
             tmin = tm.amin(dim=1)
-            sel = tm <= tmin[:, None, :]
+            sel = live & (tm <= tmin[:, None, :])
             fwin = torch.where(sel, fid, -1.0).amax(dim=1)
             sel2 = sel & (fid == fwin[:, None, :])
             um = torch.where(sel2, u, -_BIG).amax(dim=1)
             vm = torch.where(sel2, v, -_BIG).amax(dim=1)
             slot = torch.where(sel2, slots, -1).amax(dim=1)
-            take = tmin < t_i
+            f_i = f_b[idx]
+            take = (tmin < t_i) | ((tmin == t_i) & (fwin > f_i))
             t_b[idx] = torch.where(take, tmin, t_i)
             u_b[idx] = torch.where(take, um, u_b[idx])
             v_b[idx] = torch.where(take, vm, v_b[idx])
-            f_b[idx] = torch.where(take, fwin, f_b[idx])
+            f_b[idx] = torch.where(take, fwin, f_i)
             cw[idx] = torch.where(take, c[:, None], cw[idx])
             sw[idx] = torch.where(take, slot, sw[idx])
         lanes = slice(s * R_TILE, e * R_TILE)
@@ -258,8 +408,10 @@ def closest_hit_plain(rays, tri, tab, order, keys, count):
     return out, fd.contiguous()
 
 
-def any_hit_plain(rays, tri, order, keys, count):
+def any_hit_plain(rays, acc):
     """Plain twin of the any-hit kernel: (Lp,) float32, 1 = occluded."""
+    tri = acc.tri
+    order, keys, count = cull_order(rays, grown_bounds(rays, acc), acc.n_clusters)
     Lp = rays.shape[1]
     nt = Lp // R_TILE
     C = tri.shape[0]
@@ -298,80 +450,90 @@ def any_hit_plain(rays, tri, order, keys, count):
 def build():
     """Compile csrc/cluster.cu with nvcc for sm_90a (once per source hash)
     and load it. Returns the ctypes library."""
-    p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    p, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     return cuda_build.load_library(SRC, {
-        "closest_hit_launch": ([p, i64, p, p, i32, i32, i32, p, p, p, i32, p, p, p], i32),
-        "any_hit_launch": ([p, i64, p, i32, i32, p, p, p, i32, p, p], i32),
+        "closest_hit_launch": ([p, i64, p, p, p, i32, i32, p, p, p, f32, i32, p], i32),
+        "any_hit_launch": ([p, i64, p, p, p, p, f32, i32, p], i32),
     })
 
 
-def _check_inputs(rays, tri, order, keys, count):
+def _check_inputs(rays, acc, counts):
     dev = rays.device
-    for name, x, dt in (("rays", rays, torch.float32), ("tri", tri, torch.float32),
-                        ("order", order, torch.int32), ("keys", keys, torch.float32),
-                        ("count", count, torch.int32)):
-        if x.device != dev:
-            raise ValueError(f"{name} is on {x.device}, rays on {dev}")
-        if x.dtype != dt:
-            raise ValueError(f"{name} must be {dt}, got {x.dtype}")
+    tables = (("rays", rays), ("bounds", acc.bounds), ("tri", acc.tri), ("tab", acc.tab),
+              ("nodes", acc.nodes), ("leaf_tri", acc.leaf_tri))
+    for name, x in tables:
+        if not isinstance(x, torch.Tensor) or x.device != dev:
+            raise ValueError(f"{name} must be a tensor on the rays' device {dev}")
+        if x.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32, got {x.dtype}")
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    Lp = rays.shape[1]
-    nt = Lp // R_TILE
+    Lp = rays.shape[1] if rays.dim() == 2 else 0
     if rays.shape[0] != 8 or Lp % R_TILE or Lp == 0:
         raise ValueError(f"rays must be (8, k*{R_TILE}), got {tuple(rays.shape)}")
+    tri, tab = acc.tri, acc.tab
     if tri.dim() != 3 or tri.shape[2] != 10 or tri.shape[1] > CLUSTER_FACES:
         raise ValueError(f"tri must be (C, B<={CLUSTER_FACES}, 10), got {tuple(tri.shape)}")
-    if order.shape != (nt, MAX_VISITS) or keys.shape != (nt, MAX_VISITS) or count.shape != (nt,):
-        raise ValueError("schedule shapes do not match the ray tiles")
-
-
-def closest_hit(rays, tri, tab, order, keys, count):
-    """Closest hit of packed rays over the cluster tables, walking the
-    schedule of `cull_order`. CPU tensors take the plain twin; CUDA tensors
-    launch the kernel. Returns (out (4, Lp), fd (T, Lp))."""
-    global closest_launches
-    _check_inputs(rays, tri, order, keys, count)
     C, B, _ = tri.shape
-    if tab.shape[0] != C or tab.shape[2] != B or tab.device != rays.device \
-            or tab.dtype != torch.float32 or not tab.is_contiguous():
-        raise ValueError("tab must be a contiguous float32 (C, T, B) tensor on the rays' device")
-    if rays.device.type == "cpu":
-        return closest_hit_plain(rays, tri, tab, order, keys, count)
+    if tab.dim() != 3 or tab.shape[0] != C or tab.shape[2] != B:
+        raise ValueError(f"tab must be ({C}, T, {B}), got {tuple(tab.shape)}")
+    if acc.bounds.dim() != 2 or acc.bounds.shape[0] != 8 or acc.bounds.shape[1] < C:
+        raise ValueError(f"bounds must be (8, Cpad>={C}), got {tuple(acc.bounds.shape)}")
+    if acc.nodes.dim() != 2 or acc.nodes.shape[1] != 16 or acc.nodes.shape[0] < 1:
+        raise ValueError(f"nodes must be (N>=1, 16), got {tuple(acc.nodes.shape)}")
+    if acc.leaf_tri.dim() != 2 or acc.leaf_tri.shape[1] != 12:
+        raise ValueError(f"leaf_tri must be (F, 12), got {tuple(acc.leaf_tri.shape)}")
+    if counts is not None:
+        if dev.type != "cuda":
+            raise ValueError("per-ray counts come from the CUDA kernels only")
+        if counts.device != dev or counts.dtype != torch.int32 or counts.shape != (2, Lp) \
+                or not counts.is_contiguous():
+            raise ValueError(f"counts must be a contiguous int32 (2, {Lp}) tensor on {dev}")
+
+
+def _launch_args(rays, acc, counts):
     if rays.device.type != "cuda":
-        raise ValueError(f"no closest-hit kernel for device {rays.device}")
+        raise ValueError(f"no cluster kernel for device {rays.device}")
+    stream = torch.cuda.current_stream(rays.device).cuda_stream
+    return (rays.data_ptr(), rays.shape[1], acc.nodes.data_ptr(), acc.leaf_tri.data_ptr(),
+            None if counts is None else counts.data_ptr(), PAD, STACK_DEPTH, stream)
+
+
+def closest_hit(rays, acc, counts=None):
+    """Closest hit of packed rays (8, Lp) over the accel. CPU tensors take
+    the plain twin; CUDA tensors launch the kernel. `counts`, an optional
+    int32 (2, Lp) CUDA tensor, receives each ray's nodes visited and faces
+    tested. Returns (out (4, Lp), fd (T, Lp))."""
+    global closest_launches
+    _check_inputs(rays, acc, counts)
+    if rays.device.type == "cpu":
+        return closest_hit_plain(rays, acc)
+    rays_p, Lp, nodes_p, leaf_p, counts_p, pad, stack, stream = _launch_args(rays, acc, counts)
     lib = build()
-    Lp = rays.shape[1]
-    T = tab.shape[1]
+    _, T, B = acc.tab.shape
     out = torch.empty((4, Lp), dtype=torch.float32, device=rays.device)
     fd = torch.empty((T, Lp), dtype=torch.float32, device=rays.device)
-    stream = torch.cuda.current_stream(rays.device).cuda_stream
     cuda_build.check_launch(lib.closest_hit_launch(
-        rays.data_ptr(), Lp, tri.data_ptr(), tab.data_ptr(), C, B, T, order.data_ptr(),
-        keys.data_ptr(), count.data_ptr(), MAX_VISITS, out.data_ptr(), fd.data_ptr(), stream),
-        "closest-hit kernel")
+        rays_p, Lp, nodes_p, leaf_p, acc.tab.data_ptr(), T, B, out.data_ptr(), fd.data_ptr(),
+        counts_p, pad, stack, stream), "closest-hit kernel")
     closest_launches += 1
     return out, fd
 
 
-def any_hit(rays, tri, order, keys, count):
+def any_hit(rays, acc, counts=None):
     """Occlusion of packed rays (any hit in [mint, maxt]); (Lp,) float32,
     1 = occluded. CPU tensors take the plain twin; CUDA tensors launch the
-    kernel."""
+    kernel. `counts` as for `closest_hit`."""
     global anyhit_launches
-    _check_inputs(rays, tri, order, keys, count)
+    _check_inputs(rays, acc, counts)
     if rays.device.type == "cpu":
-        return any_hit_plain(rays, tri, order, keys, count)
-    if rays.device.type != "cuda":
-        raise ValueError(f"no any-hit kernel for device {rays.device}")
+        return any_hit_plain(rays, acc)
+    rays_p, Lp, nodes_p, leaf_p, counts_p, pad, stack, stream = _launch_args(rays, acc, counts)
     lib = build()
-    Lp = rays.shape[1]
-    C, B, _ = tri.shape
     out = torch.empty(Lp, dtype=torch.float32, device=rays.device)
-    stream = torch.cuda.current_stream(rays.device).cuda_stream
     cuda_build.check_launch(lib.any_hit_launch(
-        rays.data_ptr(), Lp, tri.data_ptr(), C, B, order.data_ptr(), keys.data_ptr(),
-        count.data_ptr(), MAX_VISITS, out.data_ptr(), stream), "any-hit kernel")
+        rays_p, Lp, nodes_p, leaf_p, out.data_ptr(), counts_p, pad, stack, stream),
+        "any-hit kernel")
     anyhit_launches += 1
     return out
 
@@ -385,9 +547,7 @@ def intersect_clusters(acc, o, d, mint, maxt):
     Returns {"t", "prim", "u", "v", "fd"} with t = inf / prim = -1 / fd = 0
     on a miss; "fd" is the winner's face-table row, (T, L)."""
     L = o[0].shape[0]
-    rays = pack_rays(o, d, mint, maxt)
-    order, keys, count = cull_order(rays, acc.bounds, acc.n_clusters)
-    out, fd = closest_hit(rays, acc.tri, acc.tab, order, keys, count)
+    out, fd = closest_hit(pack_rays(o, d, mint, maxt), acc)
     prim = out[3, :L].to(torch.int32)
     return {
         "t": torch.where(prim >= 0, out[0, :L], torch.inf),
@@ -401,6 +561,4 @@ def intersect_clusters(acc, o, d, mint, maxt):
 def ray_test_clusters(acc, o, d, mint, maxt):
     """Any-hit visibility test; True = occluded."""
     L = o[0].shape[0]
-    rays = pack_rays(o, d, mint, maxt)
-    order, keys, count = cull_order(rays, acc.bounds, acc.n_clusters)
-    return any_hit(rays, acc.tri, order, keys, count)[:L] > 0.5
+    return any_hit(pack_rays(o, d, mint, maxt), acc)[:L] > 0.5

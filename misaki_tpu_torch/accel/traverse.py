@@ -15,7 +15,7 @@ def intersect(scene, o, d, mint, maxt, coherent=True, fd_rows=None):
     "fd" the winner's (N_FACE_COLS, L) face row.
 
     `coherent` and `fd_rows` are the JAX package's relayout hints; the
-    port's tiles are consecutive lanes and it returns whole face rows, so
+    port's kernels walk each ray on its own and return whole face rows, so
     both are accepted and ignored. Intersections carry no gradient."""
     return cluster.intersect_clusters(scene.cluster, o, d, mint, maxt)
 

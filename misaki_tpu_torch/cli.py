@@ -37,7 +37,7 @@ def main(argv=None):
 
     t0 = time.perf_counter()
     scene = load_and_compile(args.scene, spp=args.spp, width=args.width,
-                             height=args.height).to(device)
+                             height=args.height, device=device)
     print(f"compiled {scene.n_faces} faces, {scene.n_emitters} emitters "
           f"in {time.perf_counter() - t0:.2f} s", file=sys.stderr)
 

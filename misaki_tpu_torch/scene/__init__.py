@@ -11,17 +11,20 @@ from misaki_tpu_torch.scene.types import (
 )
 
 
-def from_compiled(arrays, device="cpu"):
+def from_compiled(arrays, device="cuda"):
     """The port's scene from a `misaki_tpu` CompiledScene whose leaves are
     numpy arrays (`jax.tree_util.tree_map(np.asarray, scene)`), so both
-    packages compute on the very same tables. The cluster accel is built
+    packages compute on the very same tables. The tables lie on `device`:
+    the card unless the caller asks for the CPU, and without a CUDA device
+    that raises (as `compile_scene` does). The cluster accel is built
     here from the first `n_faces` geometry columns, since the JAX scene holds
     none for small scenes. The env and bitmap tables are taken flat (the
     bitmap atlas transposed to texel-major), never from the JAX pages.
     Takes the object by duck typing: this package never imports the JAX
     one."""
-    from misaki_tpu_torch.scene.compiler import cluster_from_geometry
+    from misaki_tpu_torch.scene.compiler import cluster_from_geometry, target_device
 
+    device = target_device(device, "from_compiled")
     g, em, cam = arrays.geometry, arrays.emitters, arrays.camera
 
     def a(x, dtype=None):

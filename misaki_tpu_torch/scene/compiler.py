@@ -20,6 +20,7 @@ Two differences from the JAX compiler:
 from pathlib import Path
 
 import numpy as np
+import torch
 
 from misaki_tpu_torch.accel.cluster import CLUSTER_FACES, build_clusters
 from misaki_tpu_torch.core import transform as tr
@@ -548,9 +549,21 @@ def _load_mesh_for_shape(shape, base_dir):
     return m
 
 
-def compile_scene(desc, spp=None, width=None, height=None, max_depth=None):
-    """Lower a loaded scene description to a CompiledScene (tables on CPU;
-    `.to(device)` moves them)."""
+def target_device(device, caller):
+    """`device` as a torch.device; raises where it is CUDA and no CUDA
+    device exists (there is no fallback to the CPU)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{caller}: no CUDA device is available; pass device='cpu' "
+                           "to build the scene for the CPU")
+    return device
+
+
+def compile_scene(desc, spp=None, width=None, height=None, max_depth=None, device="cuda"):
+    """Lower a loaded scene description to a CompiledScene whose tables lie
+    on `device`: the card unless the caller asks for the CPU. Raises where
+    the device is CUDA and no CUDA device exists."""
+    device = target_device(device, "compile_scene")
     base_dir = desc.get("base_dir", ".")
     bitmap_builder = _BitmapBuilder(base_dir)
     materials = _MaterialBuilder(bitmap_builder)
@@ -819,7 +832,7 @@ def compile_scene(desc, spp=None, width=None, height=None, max_depth=None):
         bitmaps=bitmap_table,
         bitmap_meta=bitmap_meta,
         bitmap_slots=materials.bitmap_slot_bases(),
-    ).to("cpu")
+    ).to(device)
 
 
 def cluster_from_geometry(geom, n_faces):
@@ -830,7 +843,8 @@ def cluster_from_geometry(geom, n_faces):
                           face_tab=np.asarray(geom.face_tab)[:, :n_faces])
 
 
-def load_and_compile(path, params=None, **kw):
+def load_and_compile(path, params=None, device="cuda", **kw):
+    """Load a scene file and compile it onto `device` (see compile_scene)."""
     from misaki_tpu_torch.scene.loader import load_file
 
-    return compile_scene(load_file(path, params), **kw)
+    return compile_scene(load_file(path, params), device=device, **kw)

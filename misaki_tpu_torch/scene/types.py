@@ -134,11 +134,21 @@ class Geometry(_Tables):
 
 @dataclass(frozen=True)
 class ClusterAccel(_Tables):
-    """Cluster-BVH tables (accel/cluster.py build_clusters)."""
+    """Cluster-BVH tables (accel/cluster.py build_clusters). `bounds`, `tri`
+    and `tab` are misaki_tpu's cluster tables (the plain twins walk them);
+    `nodes` and `leaf_tri` are the BVH2 the CUDA kernels traverse."""
 
     bounds: Any    # (8, Cpad) f32 rows [lo(3) hi(3) 0 0]; pads +inf/-inf
     tri: Any       # (C, B, 10) f32 cols [p0(3) e1(3) e2(3) fid]; pad fid -1
     tab: Any       # (C, T, B) f32 — face_tab columns in cluster order
+    # (N, 16) f32, one 64-byte node per row: [c0 lo.x hi.x lo.y hi.y |
+    # c1 lo.x hi.x lo.y hi.y | c0 lo.z hi.z, c1 lo.z hi.z | ref0 ref1 s 0],
+    # the refs int32 bits: >= 0 an inner node, < 0 a leaf ~(start*8 + count);
+    # s, on node 0 only: the largest |vertex coordinate| (0 elsewhere)
+    nodes: Any
+    # (F, 12) f32, the faces in leaf order: [p0 fid | e1 cluster | e2 slot],
+    # cluster and slot as int32 bits (the face's column of `tab`)
+    leaf_tri: Any
     n_clusters: int = 0
 
 

@@ -5,6 +5,8 @@ bounds (tests/test_cluster.py): t to rtol 1e-4, prim equal on >= 99% of
 rays (exact ties may pick another winner), face rows exact, misses t = inf,
 occlusion exact. The schedule (cull_order) must match exactly."""
 
+from dataclasses import replace
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -18,6 +20,7 @@ from misaki_tpu.scene.types import Geometry
 from misaki_tpu_torch.accel import cluster as pcl
 from misaki_tpu_torch.render import driver as pdriver
 from misaki_tpu_torch.scene.compiler import load_and_compile as pload
+from misaki_tpu_torch.tools.tie_case import merge_clusters
 
 
 def _case(p0, e1, e2, tab, o, d, mint, maxt_hit, maxt_occ):
@@ -51,7 +54,7 @@ def _soup():
 
 
 def _cbox():
-    scene = pload(str(CBOX_XML), spp=64, width=64, height=64)
+    scene = pload(str(CBOX_XML), spp=64, width=64, height=64, device="cpu")
     g = scene.geometry
     F = scene.n_faces
     p0, e1, e2 = (n(x)[:, :F].T.copy() for x in (g.p0, g.e1, g.e2))
@@ -163,12 +166,50 @@ def test_finite_maxt_clips():
 
 def test_wrapper_rejects_bad_inputs():
     c = _soup()
+    acc = c["pacc"]
     rays = pcl.pack_rays(*_torch_rays(c, c["maxt_hit"]))
-    order, keys, count = pcl.cull_order(rays, c["pacc"].bounds, c["pacc"].n_clusters)
     with pytest.raises(ValueError):
-        pcl.closest_hit(rays[:, :100].contiguous(), c["pacc"].tri, c["pacc"].tab, order,
-                        keys, count)
+        pcl.closest_hit(rays[:, :100].contiguous(), acc)
     with pytest.raises(ValueError):
-        pcl.any_hit(rays, c["pacc"].tri.double(), order, keys, count)
+        pcl.any_hit(rays, replace(acc, tri=acc.tri.double()))
     with pytest.raises(ValueError):
-        pcl.any_hit(rays, c["pacc"].tri, order.long(), keys, count)
+        pcl.any_hit(rays, replace(acc, nodes=acc.nodes[:, :12].contiguous()))
+    with pytest.raises(ValueError):
+        pcl.closest_hit(rays, replace(acc, leaf_tri=acc.leaf_tri.T))
+    with pytest.raises(ValueError):
+        pcl.closest_hit(rays, replace(acc, tab=acc.tab[:, :, :7]))
+    with pytest.raises(ValueError):   # per-ray counts come from the kernels only
+        pcl.closest_hit(rays, acc, counts=torch.zeros((2, rays.shape[1]), dtype=torch.int32))
+
+
+def test_prim_differs_from_pallas_only_on_exact_ties(case):
+    """Where the twin's face differs from misaki_tpu's (whose walk lets the
+    first cluster visited win a tie), misaki_tpu's face is hit at the very
+    same t in the port's arithmetic and the twin's face has the larger id.
+    Checked on the case's accel and on the accel with every face duplicated
+    into a second set of clusters, where every hit is such a tie. (t itself
+    agrees to an ulp: XLA's CPU arithmetic may round differently.)"""
+    o, d, mint, maxt = _torch_rays(case, case["maxt_hit"])
+    F = case["F"]
+    dup = merge_clusters(case["pacc"], case["pacc"])
+    jdup = jcl.ClusterAccel(bounds=jnp.asarray(dup.bounds), tri=jnp.asarray(dup.tri),
+                            tab=jnp.asarray(dup.tab), n_clusters=dup.n_clusters)
+    for pacc, jacc in ((case["pacc"], case["jacc"]), (dup.to("cpu"), jdup)):
+        got = pcl.intersect_clusters(pacc, o, d, mint, maxt)
+        want = jcl.intersect_clusters(jacc, *_jax_rays(case, case["maxt_hit"]), interpret=True)
+        gp, wp = n(got["prim"]), np.asarray(want["prim"])
+        np.testing.assert_allclose(n(got["t"]), np.asarray(want["t"]), rtol=1e-6, atol=0)
+        diff = np.nonzero(gp != wp)[0]
+        assert (gp[diff] > wp[diff]).all() and (wp[diff] >= 0).all()
+        if len(diff) == 0:
+            continue
+        g = case["geom"]
+        f = wp[diff] % F
+        blk = np.concatenate([np.asarray(x)[:, f].T for x in (g.p0, g.e1, g.e2)], 1)
+        r = torch.stack([*(x[diff] for x in o), *(x[diff] for x in d), mint[diff], maxt[diff]])
+        t_j, _, _, hit = pcl._mt(r[:, :, None], t(np.pad(blk, ((0, 0), (0, 1))))[:, None, :],
+                                 maxt[diff][:, None])
+        assert hit.all()
+        np.testing.assert_array_equal(n(t_j)[:, 0, 0], n(got["t"])[diff])
+    hits = wp >= 0
+    assert hits.sum() > 30 and (gp[hits] == wp[hits] + F).all()

@@ -16,6 +16,8 @@ bit for bit. The texel fetch adds the same rounded products in the same
 order as its twin: equal to the bit.
 """
 
+from dataclasses import replace
+
 import numpy as np
 import pytest
 import torch
@@ -31,6 +33,7 @@ from misaki_tpu_torch.scene import procedural
 from misaki_tpu_torch.scene.compiler import load_and_compile
 from misaki_tpu_torch.scenes.envlit import assets
 from misaki_tpu_torch.tools import profile_cluster_frame
+from misaki_tpu_torch.tools.tie_case import merge_clusters
 
 pytestmark = pytest.mark.cuda
 
@@ -57,29 +60,31 @@ def _rays(L, seed, spread):
     return o, d / d.norm(dim=0, keepdim=True)
 
 
-def _compare(acc, o, d, maxt_occ):
+def _compare(acc, o, d, maxt_occ, expect_hits=True):
+    """Both kernels against their twins on one ray set. Returns the kernel's
+    closest-hit output."""
     L = o.shape[1]
     mint = torch.full((L,), 1e-4, device="cuda")
     rays = cl.pack_rays(tuple(o), tuple(d), mint, torch.full((L,), float("inf"), device="cuda"))
-    sched = cl.cull_order(rays, acc.bounds, acc.n_clusters)
     before = cl.closest_launches
-    out_k, fd_k = cl.closest_hit(rays, acc.tri, acc.tab, *sched)
+    out_k, fd_k = cl.closest_hit(rays, acc)
     assert cl.closest_launches == before + 1
-    out_p, fd_p = cl.closest_hit_plain(rays, acc.tri, acc.tab, *sched)
+    out_p, fd_p = cl.closest_hit_plain(rays, acc)
     same = out_k[3] == out_p[3]
     assert same.float().mean().item() >= 0.999
     hit = same & (out_p[3] >= 0)
-    assert hit.any()
+    assert bool(hit.any()) == expect_hits
     torch.testing.assert_close(out_k[0][hit], out_p[0][hit], rtol=1e-5, atol=0)
     assert torch.equal(fd_k[:, same], fd_p[:, same])
+    assert torch.equal(out_k[0][out_p[3] < 0], out_p[0][out_p[3] < 0])
 
     srays = cl.pack_rays(tuple(o), tuple(d), mint, maxt_occ)
-    ssched = cl.cull_order(srays, acc.bounds, acc.n_clusters)
     before = cl.anyhit_launches
-    occ_k = cl.any_hit(srays, acc.tri, *ssched)
+    occ_k = cl.any_hit(srays, acc)
     assert cl.anyhit_launches == before + 1
-    occ_p = cl.any_hit_plain(srays, acc.tri, *ssched)
+    occ_p = cl.any_hit_plain(srays, acc)
     assert (occ_k == occ_p).float().mean().item() >= 0.9999
+    return out_k
 
 
 @pytest.mark.parametrize("F,L", [(1500, 600), (20000, 1 << 16), (128, 4096)])
@@ -89,18 +94,61 @@ def test_soup_kernels_match_plain(F, L):
     _compare(acc, o, d, 1.5 * torch.ones(L, device="cuda"))
 
 
-def test_bunny_kernels_match_plain():
+def _bunny_acc():
     pos = procedural.bunny_standin()["positions"].astype(np.float64)
-    acc = cl.build_clusters(pos[:, 0].astype(np.float32),
-                            (pos[:, 1] - pos[:, 0]).astype(np.float32),
-                            (pos[:, 2] - pos[:, 0]).astype(np.float32),
-                            face_tab=np.zeros((36, len(pos)), np.float32)).to("cuda")
-    o, d = _rays(1 << 16, 1, 0.15)
-    _compare(acc, o, d, 0.1 * torch.ones(1 << 16, device="cuda"))
+    tab = np.random.default_rng(4).normal(size=(36, len(pos))).astype(np.float32)
+    return cl.build_clusters(pos[:, 0].astype(np.float32),
+                             (pos[:, 1] - pos[:, 0]).astype(np.float32),
+                             (pos[:, 2] - pos[:, 0]).astype(np.float32), face_tab=tab)
+
+
+@pytest.mark.parametrize("spread", [0.15, 0.05])
+def test_bunny_kernels_match_plain(spread):
+    """Random origins around the stand-in and random directions: incoherent
+    rays, each walking its own path (spread 0.05: origins packed around the
+    mesh's base, many inside its box)."""
+    o, d = _rays(1 << 16, 1, spread)
+    _compare(_bunny_acc().to("cuda"), o, d, 0.1 * torch.ones(1 << 16, device="cuda"))
+
+
+def test_duplicated_faces_tie_to_the_larger_id():
+    """Every bunny face twice, in two sets of clusters: each hit is an exact
+    tie across clusters, which the copy (the larger face id) wins in kernel
+    and twin alike."""
+    host = _bunny_acc()
+    F = host.leaf_tri.shape[0]
+    dup = merge_clusters(host, host).to("cuda")
+    o, d = _rays(1 << 16, 2, 0.15)
+    out = _compare(dup, o, d, 0.1 * torch.ones(1 << 16, device="cuda"))
+    once = _compare(host.to("cuda"), o, d, 0.1 * torch.ones(1 << 16, device="cuda"))
+    hit = once[3] >= 0
+    assert hit.sum() > 1000
+    assert torch.equal(out[3][hit], once[3][hit] + F) and torch.equal(out[0], once[0])
+
+
+def test_empty_accel_misses():
+    acc = profile_cluster_frame.empty_tree(36)
+    o, d = _rays(4096, 3, 1.0)
+    out = _compare(acc, o, d, torch.ones(4096, device="cuda"), expect_hits=False)
+    assert (out[3] == -1).all() and (out[0] == 3e38).all()
+
+
+def test_traversal_counts():
+    """The optional counts output: nodes visited and faces tested per ray;
+    the empty tree visits only its root."""
+    o, d = _rays(1 << 12, 5, 0.15)
+    rays = cl.pack_rays(tuple(o), tuple(d), torch.full((1 << 12,), 1e-4, device="cuda"),
+                        torch.full((1 << 12,), float("inf"), device="cuda"))
+    counts = torch.full((2, rays.shape[1]), -1, dtype=torch.int32, device="cuda")
+    out, _ = cl.closest_hit(rays, _bunny_acc().to("cuda"), counts)
+    assert (counts[0] >= 1).all() and (counts[1] >= 0).all()
+    assert (counts[1][out[3] >= 0] >= 1).all()
+    cl.any_hit(rays, profile_cluster_frame.empty_tree(36), counts)
+    assert (counts[0] == 1).all() and (counts[1] == 0).all()
 
 
 def test_cbox_kernels_match_plain():
-    scene = load_and_compile(str(CBOX_XML), spp=64, width=64, height=64).to("cuda")
+    scene = load_and_compile(str(CBOX_XML), spp=64, width=64, height=64)
     lane = torch.arange(1 << 16, dtype=torch.int64, device="cuda") + 32 * 64 * 64
     ray, _, _ = driver.primary_rays(scene, lane, 0)
     _compare(scene.cluster, torch.stack(ray["o"]), torch.stack(ray["d"]),
@@ -112,13 +160,28 @@ def test_wrapper_raises_off_cuda_and_cpu():
     o, d = _rays(256, 0, 1.0)
     rays = cl.pack_rays(tuple(o), tuple(d), torch.zeros(256, device="cuda"),
                         torch.ones(256, device="cuda"))
-    order, keys, count = cl.cull_order(rays, acc.bounds, acc.n_clusters)
     with pytest.raises(ValueError):
-        cl.any_hit(rays, acc.tri.cpu(), order, keys, count)
+        cl.any_hit(rays, replace(acc, nodes=acc.nodes.cpu()))
+    with pytest.raises(ValueError):
+        cl.closest_hit(rays.cpu(), acc)
+
+
+def test_launchers_refuse_a_deeper_stack(monkeypatch):
+    """The kernels' stack is fixed at build time; a tree that may need more
+    entries is refused at launch, not walked past the stack's end."""
+    acc = _soup_acc(256, 0)
+    o, d = _rays(256, 0, 1.0)
+    rays = cl.pack_rays(tuple(o), tuple(d), torch.zeros(256, device="cuda"),
+                        torch.ones(256, device="cuda"))
+    monkeypatch.setattr(cl, "STACK_DEPTH", cl.STACK_DEPTH + 1)
+    with pytest.raises(RuntimeError, match="closest-hit kernel launch failed"):
+        cl.closest_hit(rays, acc)
+    with pytest.raises(RuntimeError, match="any-hit kernel launch failed"):
+        cl.any_hit(rays, acc)
 
 
 def test_cuda_render_matches_cpu():
-    scene = load_and_compile(str(CBOX_XML), spp=4, width=32, height=24)
+    scene = load_and_compile(str(CBOX_XML), spp=4, width=32, height=24, device="cpu")
     a = driver.render(scene.to("cuda"), seed=3, depth_cap=3)["rgb"].cpu().numpy()
     b = driver.render(scene, seed=3, depth_cap=3)["rgb"].numpy()
     # the splat adds in atomic order on the card
@@ -150,7 +213,7 @@ def test_fetch4_matches_plain(N, L):
 def test_fetch4_envlit_taps(tmp_path):
     """Bilinear envmap taps and mip-levelled bitmap taps of a small envlit
     scene, on the card, equal to the twin."""
-    scene = load_and_compile(str(assets.write_assets(tmp_path, (64, 128), 64))).to("cuda")
+    scene = load_and_compile(str(assets.write_assets(tmp_path, (64, 128), 64)))
     g = torch.Generator(device="cuda").manual_seed(2)
     u, v = (torch.rand(1 << 16, device="cuda", generator=g) for _ in range(2))
     taps = em.env_taps(scene, u, v)
@@ -170,7 +233,7 @@ def test_fetch4_raises_on_mixed_devices():
 
 def test_envlit_cuda_render_matches_cpu(tmp_path):
     xml = assets.write_assets(tmp_path, (64, 128), 64)
-    scene = load_and_compile(str(xml), spp=4, width=32, height=24)
+    scene = load_and_compile(str(xml), spp=4, width=32, height=24, device="cpu")
     a = driver.render(scene.to("cuda"), seed=3, depth_cap=3)["rgb"].cpu().numpy()
     b = driver.render(scene, seed=3, depth_cap=3)["rgb"].numpy()
     assert abs(a.mean() - b.mean()) <= 5e-3 * abs(b.mean())
@@ -180,6 +243,8 @@ def test_envlit_cuda_render_matches_cpu(tmp_path):
 def test_stage_profile(tmp_path):
     res = profile_cluster_frame.profile(reps=2, out=tmp_path / "p.md")
     assert res["prim_equal"] >= 0.999 and res["prim_equal_empty"] == 1.0
-    assert res["launches"] == 3 * 3
+    assert res["prim_equal_random"] >= 0.999
+    assert res["launches"] == 4 * 3
     assert all(t > 0 for t in res["ms"].values())
-    assert "empty schedule" in (tmp_path / "p.md").read_text()
+    assert res["traversal"]["empty"]["nodes"]["max"] == 1
+    assert "empty tree" in (tmp_path / "p.md").read_text()

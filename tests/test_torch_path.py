@@ -60,7 +60,7 @@ def _close(want, got, rtol=1e-5, atol=1e-5):
 def wavefront():
     """A 32x24, 4 spp cbox wavefront through both packages' first bounce."""
     js = jload(str(CBOX_XML), spp=4, width=32, height=24)
-    ps = from_compiled(jax.tree_util.tree_map(np.asarray, js))
+    ps = from_compiled(jax.tree_util.tree_map(np.asarray, js), device="cpu")
     L = 32 * 24 * 4
     lane = np.arange(L, dtype=np.uint32)
     jray, jpos, jstate = jdriver.primary_rays(js, jnp.asarray(lane), SEED)
@@ -184,7 +184,7 @@ def test_render_matches_misaki_tpu():
     misaki_tpu's, same XML, seed and depth, under the golden criteria."""
     kw = dict(spp=8, width=48, height=36)
     want = np.asarray(jdriver.render(jload(str(CBOX_XML), **kw), seed=7, depth_cap=3)["rgb"])
-    got = n(pdriver.render(pload(str(CBOX_XML), **kw), seed=7, depth_cap=3)["rgb"])
+    got = n(pdriver.render(pload(str(CBOX_XML), device="cpu", **kw), seed=7, depth_cap=3)["rgb"])
     assert got.shape == want.shape == (36, 48, 3)
     frac_off, mean_err = golden_criteria(got, want)
     assert frac_off < 0.02, frac_off
@@ -195,7 +195,7 @@ def test_render_matches_misaki_tpu():
 
 def _furnace(reflectance="1.0"):
     text = open(FURNACE_XML).read().replace('value="1.0"/>', f'value="{reflectance}"/>')
-    return compile_scene(load_string(text), spp=64)
+    return compile_scene(load_string(text), spp=64, device="cpu")
 
 
 def test_furnace_white():
@@ -215,7 +215,7 @@ def test_furnace_albedo_half():
 
 @pytest.fixture(scope="module")
 def cbox_small():
-    return pload(str(CBOX_XML), spp=16, width=64, height=48)
+    return pload(str(CBOX_XML), spp=16, width=64, height=48, device="cpu")
 
 
 def test_cbox_renders_sane(cbox_small):

@@ -8,6 +8,7 @@ import sys
 import jax
 import numpy as np
 import pytest
+import torch
 
 from torch_helpers import CBOX_XML, FURNACE_XML, REPO, n
 
@@ -39,7 +40,7 @@ STATIC = ["film_width", "film_height", "spp", "max_depth", "rr_depth", "hide_emi
 def pair(request):
     path, kw = SCENES[request.param]
     js = jax.tree_util.tree_map(np.asarray, jload(str(path), **kw))
-    return js, pload(str(path), **kw)
+    return js, pload(str(path), device="cpu", **kw)
 
 
 def _get(obj, group, name):
@@ -69,7 +70,7 @@ def test_static_config(pair):
 
 def test_from_compiled_reproduces_compile(pair):
     js, ps = pair
-    fc = from_compiled(js)
+    fc = from_compiled(js, device="cpu")
     for group, name in EXACT + FITTED:
         np.testing.assert_array_equal(n(_get(fc, group, name)), n(_get(ps, group, name)))
     for name in ("bounds", "tri", "tab"):
@@ -90,7 +91,7 @@ def test_build_clusters_matches(case):
     if case == "bunny":
         p0, e1, e2 = _rows(procedural.bunny_standin())
     elif case == "cbox":
-        g = pload(str(CBOX_XML), spp=1, width=8, height=8).geometry
+        g = pload(str(CBOX_XML), spp=1, width=8, height=8, device="cpu").geometry
         p0, e1, e2 = (n(x)[:, :32].T for x in (g.p0, g.e1, g.e2))
     else:
         rs = np.random.default_rng(7)
@@ -107,7 +108,7 @@ def test_build_clusters_matches(case):
 
 
 def test_every_scene_gets_clusters():
-    ps = pload(str(CBOX_XML), spp=1, width=8, height=8)
+    ps = pload(str(CBOX_XML), spp=1, width=8, height=8, device="cpu")
     assert ps.cluster.n_clusters == 1 and ps.n_faces == 32
     assert int((n(ps.cluster.tri)[0, :, 9] >= 0).sum()) == 32
 
@@ -126,7 +127,26 @@ def test_unported_plugins_raise(plugin, xml):
         text = text.replace('<bsdf type="diffuse">\n            <spectrum name="reflectance" '
                             'value="1.0"/>\n        </bsdf>', xml)
     with pytest.raises(NotImplementedError, match=plugin):
-        compile_scene(load_string(text))
+        compile_scene(load_string(text), device="cpu")
+
+
+def test_load_and_compile_defaults_to_the_card(pair):
+    """Without `device=` the scene compiles onto the card (from an XML file,
+    a description or a misaki_tpu scene), and where no CUDA device exists
+    that raises instead of falling back to the CPU."""
+    js, _ = pair
+    if torch.cuda.is_available():
+        assert pload(str(CBOX_XML), spp=1, width=8, height=8).device.type == "cuda"
+        assert from_compiled(js).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            pload(str(CBOX_XML), spp=1, width=8, height=8)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            compile_scene(load_string(open(FURNACE_XML).read()))
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            from_compiled(js)
+    assert pload(str(CBOX_XML), spp=1, width=8, height=8, device="cpu").device.type == "cpu"
+    assert from_compiled(js, device="cpu").device.type == "cpu"
 
 
 def test_port_never_imports_jax():

@@ -128,7 +128,7 @@ def scenes(files):
         for name, path, kw in (("envlit", xml, dict(spp=4, width=32, height=24)),
                                ("two", d / "two.xml", {}), ("ties", d / "ties.xml", {})):
             out[name] = (jcomp.load_and_compile(str(path), **kw),
-                         pcomp.load_and_compile(str(path), **kw))
+                         pcomp.load_and_compile(str(path), device="cpu", **kw))
     return out
 
 
@@ -232,7 +232,7 @@ def test_from_compiled_carries_textures(scenes):
     js, ps = scenes["two"]
     import jax
 
-    fc = from_compiled(jax.tree_util.tree_map(np.asarray, js))
+    fc = from_compiled(jax.tree_util.tree_map(np.asarray, js), device="cpu")
     for group, field in TABLES:
         a = getattr(fc if group is None else getattr(fc, group), field)
         b = getattr(ps if group is None else getattr(ps, group), field)

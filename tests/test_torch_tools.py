@@ -4,6 +4,7 @@ schedule statistics on the bunny stand-in's camera rays."""
 
 import shutil
 
+import numpy as np
 import pytest
 import torch
 
@@ -55,7 +56,7 @@ def test_built_library_is_not_rebuilt(tmp_path, monkeypatch):
 
 
 def test_schedule_stats_on_bunny_camera_rays():
-    scene = load_and_compile(str(pcf.BUNNY_XML), spp=1, width=64, height=64)
+    scene = load_and_compile(str(pcf.BUNNY_XML), spp=1, width=64, height=64, device="cpu")
     assert scene.cluster.n_clusters == 160
     lane = torch.arange(64 * 64, dtype=torch.int64)
     ray, _, _ = driver.primary_rays(scene, lane, 0)
@@ -68,6 +69,32 @@ def test_schedule_stats_on_bunny_camera_rays():
     # camera rays are coherent: most tiles walk a short visit list
     assert stats["full_scan"] < stats["tiles"] // 4
     assert stats["visits_p50"] < 160
+
+
+def test_cast_bounds_count_bytes():
+    """The bound of a cast: each ray read and each result written once, the
+    tree and faces read once, the distinct winners' face rows read once;
+    bytes over the HBM rate dominate one Moller-Trumbore test per hit."""
+    rs = np.random.default_rng(1)
+    F, L = 300, 512
+    p0, e1, e2 = (rs.uniform(-s, s, (F, 3)).astype(np.float32) for s in (1.0, 0.2, 0.2))
+    acc = cl.build_clusters(p0, e1, e2, face_tab=np.ones((36, F), np.float32)).to("cpu")
+    o = torch.from_numpy(rs.uniform(-1.5, 1.5, (3, L)).astype(np.float32))
+    d = torch.from_numpy(rs.normal(size=(3, L)).astype(np.float32))
+    rays = cl.pack_rays(tuple(o), tuple(d / d.norm(dim=0)), torch.zeros(L), torch.full((L,), 2.0))
+    out, _ = cl.closest_hit(rays, acc)
+    hit = out[3] >= 0
+    assert 0 < hit.sum() < L
+    tables = (acc.nodes.numel() + acc.leaf_tri.numel()) * 4
+    winners = torch.unique(out[3][hit]).numel()
+    ms, by = pcf.closest_bound(rays, acc, out)
+    assert by == "bytes"
+    assert ms == pytest.approx((L * (32 + 16 + 144) + tables + winners * 144) / 3.35e9)
+    occ = cl.any_hit(rays, acc)
+    ms, by = pcf.any_bound(rays, acc, occ)
+    assert by == "bytes" and ms == pytest.approx((L * 36 + tables) / 3.35e9)
+    ms, by = pcf.bound_ms(0, 67e9)
+    assert by == "operations" and ms == pytest.approx(1.0)
 
 
 def test_stage_profile_needs_cuda(tmp_path):
