@@ -19,18 +19,25 @@ Phases, one line each; any failure exits non-zero:
      timed frames with the launch counters reset just before them and
      checked after; seconds per frame and rays/s;
   5. a small cbox render on cuda against the same render on the CPU;
-  6. the texel-fetch kernel against its plain twin at 2^20 lanes: random
-     bilinear taps into the envlit scene's 2048x4096 envmap, and
-     camera-coherent taps into its 1024^2 bitmap with the mip levels spread;
-     beside it the library call F.embedding_bag on the same taps (timed and
-     checked, never used by the port);
+  6. the texel-fetch kernel against its plain twin at 2^20 lanes
+     (misaki_tpu_torch.tools.profile_texel_fetch): random bilinear taps into
+     the envlit scene's 2048x4096 envmap, camera-coherent taps into its
+     1024^2 bitmap with the mip levels spread, the envmap's own NEE taps,
+     and the split launches (every tap dead; every tap on texel 0; the
+     random taps modulo a 4 MB table), each with its bound and sector
+     bytes; beside it the library call F.embedding_bag on the same taps
+     (timed and checked, never used by the port);
   7. the envlit main path (the bunny stand-in on a bitmap-textured floor
      under a 2048x4096 HDR sky, 256x256, 64 spp, 4 bounces) through render()
-     on cuda, as in phase 4, with the launches of all three kernels checked;
-     image checks; a small envlit render on cuda against the CPU;
+     on cuda, as in phase 4, with the launches of all three kernels checked
+     and the texel fetch's device time per launch in the frame; image
+     checks; a small envlit render on cuda against the CPU;
   8. the closest-hit stage profile (misaki_tpu_torch.tools.profile_cluster_frame)
      on the bunny stand-in's camera rays and on random rays.
-Then one JSON line with the kernels' numbers, and last the result line
+Every kernel time is a device time taken one way
+(`profile_cluster_frame.device_ms`: CUDA events around launches enqueued
+while a device sleep holds the stream, so the host's launch cost is not in
+it). Then one JSON line with the kernels' numbers, and last the result line
 {"ok": true, "device": {...}}. Extra detail goes to chiprun_out/.
 """
 
@@ -58,21 +65,6 @@ def fail(msg):
 
 def phase(name, msg):
     print(f"[{name}] {msg}", flush=True)
-
-
-def cuda_time_ms(fn, reps):
-    """Mean device time of fn() over `reps` calls, by CUDA events."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def camera_like_rays(n, center, extent, gen):
@@ -110,7 +102,7 @@ def compare_kernels(acc, o, d, maxt_shadow, label, report, copy_from=None):
     import torch
 
     from misaki_tpu_torch.accel import cluster as cl
-    from misaki_tpu_torch.tools.profile_cluster_frame import any_bound, closest_bound
+    from misaki_tpu_torch.tools.profile_cluster_frame import any_bound, closest_bound, device_ms
 
     n = o.shape[1]
     mint = torch.full((n,), 1e-4, device="cuda")
@@ -138,10 +130,10 @@ def compare_kernels(acc, o, d, maxt_shadow, label, report, copy_from=None):
     occ_frac = (occ_k == occ_p).float().mean().item()
     occ_rate = occ_p.mean().item()
 
-    ms_c = cuda_time_ms(lambda: cl.closest_hit(rays, acc), 10)
-    ms_cp = cuda_time_ms(lambda: cl.closest_hit_plain(rays, acc), 1)
-    ms_a = cuda_time_ms(lambda: cl.any_hit(srays, acc), 10)
-    ms_ap = cuda_time_ms(lambda: cl.any_hit_plain(srays, acc), 1)
+    ms_c = device_ms(lambda: cl.closest_hit(rays, acc), 10)
+    ms_cp = device_ms(lambda: cl.closest_hit_plain(rays, acc), 1)
+    ms_a = device_ms(lambda: cl.any_hit(srays, acc), 10)
+    ms_ap = device_ms(lambda: cl.any_hit_plain(srays, acc), 1)
     bc, bc_by = closest_bound(rays, acc, out_p)
     ba, ba_by = any_bound(srays, acc, occ_p)
     _, _, count = cl.cull_order(rays, acc.bounds, acc.n_clusters)
@@ -169,53 +161,32 @@ def compare_kernels(acc, o, d, maxt_shadow, label, report, copy_from=None):
         fail(f"phase 3 {label}: kernel disagrees with its plain twin")
 
 
-def compare_fetch(table, idx4, w4, label, report):
-    """The texel-fetch kernel vs its plain twin on one tap set: both add the
-    four products in tap order, each rounded, so they must agree bit for
-    bit (the kernel is built without fused multiply-add). Beside them the
-    library call that computes the same sums, F.embedding_bag over the live
-    taps (dead taps: weight 0 on a clamped id), timed and checked to rtol
-    1e-5 (it may add in another order); the port never calls it."""
-    import torch
-    import torch.nn.functional as F
+def compare_fetch(envlit):
+    """The texel-fetch kernel on the envlit scene's cells and split launches
+    (misaki_tpu_torch.tools.profile_texel_fetch), held against the plain
+    twin to the bit: both add the four products in tap order, each rounded
+    (the kernel is built without fused multiply-add). Beside it the library
+    call that computes the same sums, F.embedding_bag over the live taps,
+    timed and checked to rtol 1e-5 (it may add in another order); the port
+    never calls it. Returns {cell: numbers}."""
+    from misaki_tpu_torch.tools import profile_texel_fetch as ptf
 
-    from misaki_tpu_torch.render import texel_fetch as tf
-    from misaki_tpu_torch.tools.profile_cluster_frame import bound_ms
-
-    out_k = tf.fetch4(table, idx4, w4)
-    out_p = tf.fetch4_plain(table, idx4, w4)
-    torch.cuda.synchronize()
-    diff = (out_k - out_p).abs()
-    abs_err = diff.max().item()
-    rel_err = (diff / out_p.abs().clamp(min=1e-30)).max().item()
-    N = table.shape[0]
-    live = (w4 != 0.0) & (idx4 >= 0) & (idx4 < N)
-    ids = idx4.T.clamp(0, N - 1).long().contiguous()
-    w = torch.where(live, w4, 0.0).T.contiguous()
-    out_lib = F.embedding_bag(ids, table, per_sample_weights=w, mode="sum")    # (L, 3)
-    lib_err = ((out_lib - out_p.T).abs()
-               / (w.abs()[:, :, None] * table[ids].abs()).sum(1).clamp(min=1e-30)).max().item()
-    live_share = live.float().mean().item()
-    ms = cuda_time_ms(lambda: tf.fetch4(table, idx4, w4), 20)
-    plain_ms = cuda_time_ms(lambda: tf.fetch4_plain(table, idx4, w4), 5)
-    library_ms = cuda_time_ms(
-        lambda: F.embedding_bag(ids, table, per_sample_weights=w, mode="sum"), 20)
-    L = idx4.shape[1]
-    texels = int(torch.unique(idx4[live]).numel())
-    bound, bound_by = bound_ms(L * (16 + 16 + 4 * table.shape[1]) + texels * 4 * table.shape[1],
-                               L * 8 * table.shape[1])
-    phase("6", f"{label}: lanes={L} texels={N} live_taps={live_share:.4f} "
-               f"distinct_live_texels={texels} max_abs_err={abs_err:.3e} "
-               f"max_rel_err={rel_err:.3e} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-               f"bound_ms={bound:.4f} ({bound_by}) embedding_bag_ms={library_ms:.4f} "
-               f"embedding_bag_rel_err={lib_err:.3e}")
-    report[label] = dict(max_abs_err=abs_err, max_rel_err=rel_err, ms=ms, plain_ms=plain_ms,
-                         library_ms=library_ms, library_rel_err=lib_err, bound_ms=bound,
-                         bound_by=bound_by, lanes=L, texels=N)
-    if abs_err != 0.0:
-        fail(f"phase 6 {label}: the texel-fetch kernel differs from its plain twin")
-    if lib_err > 1e-5:
-        fail(f"phase 6 {label}: embedding_bag does not compute the texel fetch's sums")
+    res = ptf.profile(envlit, reps=30, out=OUT_DIR / "profile_texel_fetch.md")
+    for name, c in res["cells"].items():
+        phase("6", f"{name}: lanes={c['lanes']} texels={c['texels']} "
+                   f"live_taps={c['live_taps']:.4f} distinct_live_texels="
+                   f"{c['distinct_live_texels']} equal_to_twin={c['equal']} "
+                   f"kernel_ms={c['ms']:.4f} bound_ms={c['bound_ms']:.4f} ({c['bound_by']}) "
+                   f"sector_bytes={c['sector_bytes']} plain_ms={c['plain_ms']:.4f} "
+                   f"embedding_bag_ms={c['embedding_bag_ms']:.4f} "
+                   f"embedding_bag_rel_err={c['embedding_bag_rel_err']:.3e}")
+        if c["embedding_bag_rel_err"] > 1e-5:
+            fail(f"phase 6 {name}: embedding_bag does not compute the texel fetch's sums")
+    phase("6", f"{len(res['cells'])} cells, all equal to the twin: {res['equal']}; table "
+               f"{Path(res['table']).relative_to(ROOT)}")
+    if not res["equal"]:
+        fail("phase 6: a texel-fetch launch differs from its plain twin")
+    return res["cells"]
 
 
 def reset_counts():
@@ -338,10 +309,8 @@ def main():
     import numpy as np
 
     from misaki_tpu_torch.accel import cluster as cl
-    from misaki_tpu_torch.emitter import kernels as em
     from misaki_tpu_torch.render import driver
     from misaki_tpu_torch.render import texel_fetch as tf
-    from misaki_tpu_torch.render import textures as ptex
     from misaki_tpu_torch.render.integrator import n_bounce_iters
     from misaki_tpu_torch.scene import procedural
     from misaki_tpu_torch.scene.compiler import load_and_compile
@@ -434,23 +403,9 @@ def main():
                f"{envlit.cluster.n_clusters} clusters, env {tuple(envlit.emitters.env_rgb.shape)}, "
                f"sampling {tuple(envlit.emitters.env_pmf.shape)}, bitmap texels "
                f"{envlit.bitmaps.shape[0]}; assets and compile {time.perf_counter() - t0:.2f} s")
-    fetch_report = {}
-    u = torch.rand(N_RAYS, device="cuda", generator=gen)
-    v = torch.rand(N_RAYS, device="cuda", generator=gen)
-    env_table = envlit.emitters.env_rgb.reshape(-1, 3)
-    compare_fetch(env_table, *em.env_taps(envlit, u, v), "env_random", fetch_report)
-    # a 1024^2 raster over the floor's texture (repeated twice, as the
-    # floor's uv transform does), its footprint growing down the rows from
-    # one texel to the whole texture: every mip level in bands of rows
-    side = 1 << 10
-    ij = torch.arange(N_RAYS, device="cuda")
-    x, y = (ij % side).float(), (ij // side).float()
-    W0, _, levels = envlit.bitmap_meta[0]
-    fp = torch.exp2(y / side * len(levels)) / W0
-    zero = torch.zeros_like(fp)
-    taps = ptex.bitmap_taps(envlit, 0, (x + 0.5) / side * 2.0, (y + 0.5) / side * 2.0,
-                            ((fp, zero), (zero, zero)))
-    compare_fetch(envlit.bitmaps, *taps, "bitmap_camera_mips", fetch_report)
+    # random envmap taps, a raster over every mip level of the floor's
+    # bitmap, the envmap's NEE taps, and the split launches
+    fetch_report = compare_fetch(envlit)
 
     # ---- phase 7: the envlit main path at full size
     n_iters = n_bounce_iters(envlit, BENCH_DEPTH)
@@ -500,7 +455,7 @@ def main():
         fail(f"phase 8: {prof['launches']} closest-hit launches, expected {want_launches}")
 
     main_case = report["cbox_camera"]
-    fa, fb = fetch_report["env_random"], fetch_report["bitmap_camera_mips"]
+    fa, fb, fn = (fetch_report[c] for c in ("env_random", "bitmap_camera_mips", "env_nee"))
 
     def per_frame(key):
         return {"cbox": launches_cbox[key] / N_FRAMES, "envlit": launches_env[key] / N_FRAMES}
@@ -529,11 +484,15 @@ def main():
          "replaces": "misaki_tpu/render/paged_fetch.py:55",
          "launches": launches_env["fetch"],
          "launches_per_frame": per_frame("fetch"),
-         "max_abs_err": max(fa["max_abs_err"], fb["max_abs_err"]),
+         "max_abs_err": max(c["max_abs_err"] for c in fetch_report.values()),
          "ms": fa["ms"], "plain_ms": fa["plain_ms"],
-         "bound_ms": fa["bound_ms"], "bound_by": fa["bound_by"], "library_ms": fa["library_ms"],
+         "bound_ms": fa["bound_ms"], "bound_by": fa["bound_by"],
+         "library_ms": fa["embedding_bag_ms"], "sector_bytes": fa["sector_bytes"],
          "bitmap_ms": fb["ms"], "bitmap_plain_ms": fb["plain_ms"],
-         "bitmap_bound_ms": fb["bound_ms"], "bitmap_library_ms": fb["library_ms"]},
+         "bitmap_bound_ms": fb["bound_ms"], "bitmap_library_ms": fb["embedding_bag_ms"],
+         "bitmap_sector_bytes": fb["sector_bytes"],
+         "nee_ms": fn["ms"], "nee_plain_ms": fn["plain_ms"], "nee_bound_ms": fn["bound_ms"],
+         "nee_library_ms": fn["embedding_bag_ms"], "nee_sector_bytes": fn["sector_bytes"]},
         {"name": "cluster_closest_hit_stage_profile", "route": "cuda",
          "source": "misaki_tpu_torch/tools/profile_cluster_frame.py",
          "replaces": "tools/profile_cluster_frame.py:124",
@@ -596,19 +555,21 @@ def try_profile(scene, frame_s, label, table_name):
 
     (closest_t, n_closest), (any_t, n_any) = named("closest_hit"), named("any_hit")
     cluster_t = closest_t + any_t
-    fetch_t, _ = named("fetch4")
+    fetch_t, n_fetch = named("fetch4")
     kernels.sort(key=lambda e: -self_time(e))
     top = "; ".join(f"{e.key[:60]} {self_time(e) / 1e3:.3f} ms x{e.count}" for e in kernels[:6])
     cast_ms = {"closest": 1e3 * closest_t / max(n_closest, 1), "anyhit": 1e3 * any_t / max(n_any, 1)}
+    fetch_ms = 1e3 * fetch_t / max(n_fetch, 1)
     phase(label, f"profile of one frame: {launches} kernel launches, device busy {busy:.4f} s "
                  f"= {busy / frame_s:.3f} of the unprofiled {frame_s:.4f} s frame; cluster "
                  f"kernels {cluster_t:.4f} s = {cluster_t / busy:.3f} of device time (closest "
                  f"hit {closest_t:.4f} s over {n_closest} launches, {cast_ms['closest']:.4f} ms "
                  f"each; any hit {any_t:.4f} s over {n_any}, {cast_ms['anyhit']:.4f} ms each), "
-                 f"texel fetch {fetch_t:.4f} s = {fetch_t / busy:.3f}; top: {top}")
+                 f"texel fetch {fetch_t:.4f} s = {fetch_t / busy:.3f} over {n_fetch} launches, "
+                 f"{fetch_ms:.4f} ms each; top: {top}")
     return {"launches": launches, "busy_s": busy, "busy_share": busy / frame_s,
             "cluster_s": cluster_t, "cluster_share": cluster_t / busy, "fetch_s": fetch_t,
-            "cast_ms": cast_ms}
+            "fetch_launches": n_fetch, "fetch_ms_per_launch": fetch_ms, "cast_ms": cast_ms}
 
 
 if __name__ == "__main__":

@@ -64,8 +64,8 @@ def fetch4(table, idx4, w4):
             raise ValueError(f"{name} must be {dt}, got {x.dtype}")
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if table.dim() != 2 or table.shape[1] != 3 or table.shape[0] == 0:
-        raise ValueError(f"table must be (N>0, 3), got {tuple(table.shape)}")
+    if table.dim() != 2 or table.shape[1] != 3 or not 0 < table.shape[0] < 2 ** 31:
+        raise ValueError(f"table must be (N, 3) with 0 < N < 2^31, got {tuple(table.shape)}")
     if idx4.dim() != 2 or idx4.shape[0] != 4 or w4.shape != idx4.shape:
         raise ValueError(f"idx4 and w4 must both be (4, L), got {tuple(idx4.shape)} "
                          f"and {tuple(w4.shape)}")
@@ -73,6 +73,9 @@ def fetch4(table, idx4, w4):
         return fetch4_plain(table, idx4, w4)
     if dev.type != "cuda":
         raise ValueError(f"no texel-fetch kernel for device {dev}")
+    if table.data_ptr() % 16:
+        raise ValueError("table must start on a 16-byte boundary (the kernel reads "
+                         "bilinear rows as 16-byte spans)")
     L = idx4.shape[1]
     out = torch.empty((3, L), dtype=torch.float32, device=dev)
     if L == 0:

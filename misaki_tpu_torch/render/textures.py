@@ -53,9 +53,9 @@ def bitmap_taps(scene, tex_id, u, v, duv=None):
     reference's uv - floor(uv) (bitmap.cpp:31-32), at the mip level the
     screen-space footprint `duv` selects (level 0 without it). The
     arithmetic is misaki_tpu's `bitmap_fetch_rgb`; each lane's level
-    geometry is looked up instead of unrolled over the levels."""
+    geometry is looked up in the scene's `bitmap_levels` instead of unrolled
+    over the levels."""
     W0, H0, levels = scene.bitmap_meta[tex_id]
-    dev = u.device
     u = u - torch.floor(u)
     v = v - torch.floor(v)
     n_lv = len(levels)
@@ -73,7 +73,7 @@ def bitmap_taps(scene, tex_id, u, v, duv=None):
     # a NaN footprint selects no level: all four taps dead, texel 0
     has_lvl = lvl >= 0.0
     li = torch.where(has_lvl, lvl, 0.0).to(torch.int64)
-    geo = torch.tensor(levels, dtype=torch.int32, device=dev)[li]     # (L, 3)
+    geo = scene.bitmap_levels[tex_id][li]                              # (L, 3)
     off, W, H = geo[:, 0], geo[:, 1], geo[:, 2]
     fu = u * W.to(torch.float32) - 0.5
     fv = v * H.to(torch.float32) - 0.5

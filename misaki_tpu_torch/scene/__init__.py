@@ -3,6 +3,7 @@
 import numpy as np
 
 from misaki_tpu_torch.scene.types import (
+    bitmap_level_table,
     Camera,
     CompiledScene,
     EmitterTable,
@@ -63,5 +64,6 @@ def from_compiled(arrays, device="cuda"):
         crop_x=arrays.crop_x, crop_y=arrays.crop_y,
         bitmaps=np.ascontiguousarray(a(arrays.bitmaps, np.float32).T),
         bitmap_meta=tuple(arrays.bitmap_meta), bitmap_slots=tuple(arrays.bitmap_slots),
+        bitmap_levels=bitmap_level_table(arrays.bitmap_meta),
     )
     return scene.to(device)

@@ -30,6 +30,7 @@ from misaki_tpu_torch.core.table import sigmoid_inverse
 from misaki_tpu_torch.scene import procedural
 from misaki_tpu_torch.scene.obj_loader import load_obj
 from misaki_tpu_torch.scene.types import (
+    bitmap_level_table,
     BSDF_DIFFUSE,
     Camera,
     CompiledScene,
@@ -831,6 +832,7 @@ def compile_scene(desc, spp=None, width=None, height=None, max_depth=None, devic
         bsdf_kinds=materials.kinds_present(),
         bitmaps=bitmap_table,
         bitmap_meta=bitmap_meta,
+        bitmap_levels=bitmap_level_table(bitmap_meta),
         bitmap_slots=materials.bitmap_slot_bases(),
     ).to(device)
 

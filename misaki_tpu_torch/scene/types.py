@@ -109,6 +109,15 @@ def _to(value, device):
     return value
 
 
+def bitmap_level_table(meta):
+    """The (T, most levels, 3) int32 table of each texture's levels'
+    (offset, W, H) from the static `bitmap_meta`."""
+    table = np.zeros((len(meta), max((len(m[2]) for m in meta), default=1), 3), np.int32)
+    for t, (_, _, levels) in enumerate(meta):
+        table[t, :len(levels)] = levels
+    return table
+
+
 class _Tables:
     """Dataclass mixin: tensor fields move together with `.to(device)`;
     other fields (static metadata) are kept."""
@@ -223,6 +232,10 @@ class CompiledScene(_Tables):
     # (W0, H0, ((offset, W, H), ...per level)).
     bitmaps: Any = field(default_factory=lambda: np.zeros((8, 3), np.float32))
     bitmap_meta: tuple = ()
+    # the levels of bitmap_meta as a (T, most levels, 3) int32 table of
+    # (offset, W, H) on the scene's device, rows past a texture's last level
+    # 0 (bitmap_level_table)
+    bitmap_levels: Any = field(default_factory=lambda: np.zeros((0, 1, 3), np.int32))
     # static tuple of material-slot base columns that reference a bitmap;
     # the other slots skip the texel fetch
     bitmap_slots: tuple = ()

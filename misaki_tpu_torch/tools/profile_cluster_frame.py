@@ -5,8 +5,9 @@
 On the camera rays of one frame of the scene (default: the bunny stand-in,
 `misaki_tpu_torch/scenes/bunny.xml`, 256x256 at 16 spp = 2^20 rays), and on
 as many random rays through the scene's box (incoherent: random origins
-around the mesh, random directions), it times with CUDA events, each as the
-mean of `--reps` calls after one warm-up call:
+around the mesh, random directions), it times on the device (`device_ms`:
+CUDA events, the launches enqueued behind a held stream), each as the mean
+of `--reps` calls after one warm-up call:
 
   * `primary_rays` (camera rays and their PCG32 draws) and `pack_rays`;
   * the closest-hit kernel alone on the camera rays (`kernel_only`);
@@ -26,7 +27,9 @@ the card's name and power limit, goes to `--out` (default
 """
 
 import argparse
+import functools
 import subprocess
+import time
 from pathlib import Path
 
 import numpy as np
@@ -46,12 +49,34 @@ MT_OPS = 45          # FP32 operations of one Moller-Trumbore test
 RANDOM_CHECK = 1 << 16
 
 
-def cuda_time_ms(fn, reps):
-    """Mean device time of fn() over `reps` calls after one warm-up call,
-    by CUDA events."""
+@functools.cache
+def _ms_per_sleep_cycle():
+    """The device's ms per cycle of `torch.cuda._sleep`, measured once."""
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    torch.cuda._sleep(10 ** 7)
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / 10 ** 7
+
+
+def device_ms(fn, reps):
+    """Mean device time of fn() over `reps` calls after one warm-up call, by
+    CUDA events around calls that the host enqueues while a device sleep
+    holds the stream, so the device runs them back to back and the host's
+    launch cost is not in the time (a wrapper's 30-60 us exceeds a short
+    kernel's run)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     fn()
+    host_ms = 1e3 * (time.perf_counter() - t0)
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    # the hold covers three times the warm-up's host time per call; a call
+    # that waits on the device (a plain twin's .item()) drains the queue
+    # however long the hold, so the hold stops at a second
+    hold_ms = min(3.0 * reps * host_ms + 2.0, 1e3)
+    torch.cuda._sleep(int(hold_ms / _ms_per_sleep_cycle()))
     start.record()
     for _ in range(reps):
         fn()
@@ -197,7 +222,7 @@ def profile(scene_xml=BUNNY_XML, reps=20, out=DEFAULT_OUT):
     prim_equal, t_abs = compare_with_plain(acc, rays)
     prim_equal0, t_abs0 = compare_with_plain(empty, rays)
     prim_equal_r, t_abs_r = compare_with_plain(acc, rrays[:, :RANDOM_CHECK].contiguous())
-    plain_ms = cuda_time_ms(lambda: cl.closest_hit_plain(rays, acc), 1)
+    plain_ms = device_ms(lambda: cl.closest_hit_plain(rays, acc), 1)
     stats = {"camera": traversal_stats(acc, rays), "random": traversal_stats(acc, rrays),
              "empty": traversal_stats(empty, rays)}
     schedule = {k: schedule_stats(cl.cull_order(r, acc.bounds, acc.n_clusters)[2],
@@ -215,7 +240,7 @@ def profile(scene_xml=BUNNY_XML, reps=20, out=DEFAULT_OUT):
          lambda: cl.intersect_clusters(acc, o, d, mint, maxt)),
         ("closest-hit kernel, random rays", lambda: kernel_only(acc, rrays)),
     ]
-    rows = [(name, cuda_time_ms(fn, reps)) for name, fn in stages]
+    rows = [(name, device_ms(fn, reps)) for name, fn in stages]
     launches = cl.closest_launches - before
     torch.cuda.synchronize()
 
@@ -246,7 +271,8 @@ def profile(scene_xml=BUNNY_XML, reps=20, out=DEFAULT_OUT):
         f"{bounds['camera'][0]:.4f} ms ({bounds['camera'][1]}), random rays "
         f"{bounds['random'][0]:.4f} ms ({bounds['random'][1]}).",
         "",
-        f"CUDA events, mean of {reps} calls after one warm-up:",
+        f"Device time (CUDA events, launches enqueued behind a held stream), mean of "
+        f"{reps} calls after one warm-up:",
         "",
         "| stage | ms/call |",
         "|---|---|",

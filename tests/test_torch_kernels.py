@@ -32,7 +32,7 @@ from misaki_tpu_torch.render import textures as tex
 from misaki_tpu_torch.scene import procedural
 from misaki_tpu_torch.scene.compiler import load_and_compile
 from misaki_tpu_torch.scenes.envlit import assets
-from misaki_tpu_torch.tools import profile_cluster_frame
+from misaki_tpu_torch.tools import profile_cluster_frame, profile_texel_fetch_levers
 from misaki_tpu_torch.tools.tie_case import merge_clusters
 
 pytestmark = pytest.mark.cuda
@@ -229,6 +229,119 @@ def test_fetch4_raises_on_mixed_devices():
     table, idx, w = _fetch_case(100, 64, 0)
     with pytest.raises(ValueError):
         tf.fetch4(table.cpu(), idx, w)
+
+
+@pytest.fixture(scope="module")
+def small_envlit(tmp_path_factory):
+    """The envlit scene with a 64x128 sky and a 64x64 floor, on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the CUDA kernels have no CPU mode")
+    xml = assets.write_assets(tmp_path_factory.mktemp("envlit"), (64, 128), 64)
+    return load_and_compile(str(xml))
+
+
+def _launch_equals_twin(table, idx, w):
+    """One launch of the kernel, equal to the twin to the bit."""
+    before = tf.fetch_launches
+    got = tf.fetch4(table, idx, w)
+    assert tf.fetch_launches == before + 1
+    assert torch.equal(got, tf.fetch4_plain(table, idx, w))
+
+
+def _span_case(case, scene, g):
+    """(table, idx4, w4) of one kind of tap set (see test_fetch4_span_cases)."""
+    L = 1 << 14
+    env = scene.emitters.env_rgb.reshape(-1, 3)
+    We = scene.emitters.env_rgb.shape[1]
+    r = torch.rand(L, device="cuda", generator=g)
+    if case == "env_wrap_column":
+        # u within half a texel of the seam: taps 1 and 3 wrap to column 0
+        u = torch.remainder((r - 0.5) / We, 1.0)
+        return (env, *em.env_taps(scene, u, torch.rand(L, device="cuda", generator=g)))
+    if case == "bitmap_wrap_edge":
+        W0 = scene.bitmap_meta[0][0]
+        u = (r - 0.5) * 2.0 / W0 + torch.randint(-2, 3, (L,), device="cuda", generator=g)
+        v = torch.where(r < 0.5, 1.0 - 0.7 / W0 * r, 0.7 / W0 * r)
+        fp = torch.exp2(6.0 * torch.rand(L, device="cuda", generator=g)) / W0
+        zero = torch.zeros_like(fp)
+        return (scene.bitmaps, *tex.bitmap_taps(scene, 0, u, v, ((fp, zero), (zero, fp))))
+    if case == "mixed_warp":
+        # quads, with every third lane's taps random and every fifth lane's
+        # second row dead
+        idx, w = em.env_taps(scene, r, torch.rand(L, device="cuda", generator=g))
+        odd = torch.arange(L, device="cuda") % 3 == 0
+        rnd = torch.randint(0, env.shape[0], (4, L), device="cuda", generator=g,
+                            dtype=torch.int32)
+        idx = torch.where(odd[None], rnd, idx)
+        w = w.clone()
+        w[2:, torch.arange(L, device="cuda") % 5 == 0] = 0.0
+        return env, idx.contiguous(), w.contiguous()
+    if case == "all_dead_out_of_range":
+        idx = torch.where(r < 0.5, -5, env.shape[0] + 7).to(torch.int32).expand(4, L)
+        w = torch.where(torch.rand((4, L), device="cuda", generator=g) < 0.5, 0.0, 1.5)
+        return env, idx.contiguous(), w.contiguous()
+    if case == "env_nee":
+        u2 = tuple(torch.rand(L, device="cuda", generator=g) for _ in range(2))
+        _, _, u, v = em._env_sample_dir(scene, u2)
+        return (env, *em.env_taps(scene, u, v))
+    raise ValueError(case)
+
+
+@pytest.mark.parametrize("case", ["env_wrap_column", "bitmap_wrap_edge", "mixed_warp",
+                                  "all_dead_out_of_range", "env_nee"])
+def test_fetch4_span_cases(small_envlit, case):
+    """Tap sets that take the kernel's span loads, its per-tap loads, or both
+    in one warp: quads at the envmap's wrap column and a bitmap's wrap edge,
+    lanes mixing quads with random and dead taps, every tap dead with ids out
+    of range, and the envmap's NEE taps."""
+    g = torch.Generator(device="cuda").manual_seed(7)
+    table, idx, w = _span_case(case, small_envlit, g)
+    if case == "all_dead_out_of_range":
+        assert not (tf.fetch4(table, idx, w) != 0).any()
+    _launch_equals_twin(table, idx, w)
+
+
+@pytest.mark.parametrize("N", [1, 2, 3, 5, 6, 7, 4097])
+def test_fetch4_table_ends(N):
+    """Tables of N texels, N no multiple of any padding: quads at the first
+    and the last texel, whose 16-byte windows would pass the table's end."""
+    g = torch.Generator(device="cuda").manual_seed(N)
+    table = 4.0 * torch.rand((N, 3), device="cuda", generator=g) - 1.0
+    L = 4096
+    a = torch.where(torch.arange(L, device="cuda") % 2 == 0,
+                    torch.randint(0, min(N, 4), (L,), device="cuda", generator=g),
+                    torch.randint(max(N - 4, 0), N, (L,), device="cuda", generator=g))
+    a = a.to(torch.int32)
+    idx = torch.stack([a, a + 1, a - 1, a]).contiguous()
+    w = torch.rand((4, L), device="cuda", generator=g)
+    _launch_equals_twin(table, idx, w)
+
+
+@pytest.mark.parametrize("head", [1, 2, 3])
+def test_fetch4_raises_on_misaligned_table(head):
+    """A table that starts `head` floats past a 16-byte boundary is refused:
+    the kernel reads bilinear rows as 16-byte spans."""
+    table, idx, w = _fetch_case(100, 64, head)
+    buf = torch.empty(3 * 100 + 4, device="cuda")
+    moved = buf[head: head + 300].view(100, 3)
+    moved.copy_(table)
+    before = tf.fetch_launches
+    with pytest.raises(ValueError, match="16-byte"):
+        tf.fetch4(moved, idx, w)
+    assert tf.fetch_launches == before
+
+
+def test_lever_profile_variants_match_plain(small_envlit, tmp_path):
+    """Every variant of the lever profile, the port's fetch4 and a compared
+    source (the port's own) equal the twin on every cell of the small
+    envlit scene (the profile raises otherwise), each timed twice."""
+    res = profile_texel_fetch_levers.profile([tf.SRC], reps=2, out=tmp_path / "l.md",
+                                             scene=small_envlit)
+    assert len(res["ms"]) == len(profile_texel_fetch_levers.VARIANTS) + 2
+    for per in res["ms"].values():
+        assert set(per) == set(profile_texel_fetch_levers.CELLS)
+        assert all(len(t) == 2 and min(t) > 0 for t in per.values())
+    assert "(N, 4) EF" in (tmp_path / "l.md").read_text()
 
 
 def test_envlit_cuda_render_matches_cpu(tmp_path):

@@ -282,6 +282,8 @@ def test_fetch4_routes_by_device():
     before = tf.fetch_launches
     assert torch.equal(tf.fetch4(table, idx, w), tf.fetch4_plain(table, idx, w))
     assert tf.fetch_launches == before        # the CPU twin is not a launch
+    with pytest.raises(ValueError, match=r"\(N, 3\)"):
+        tf.fetch4(torch.cat([table, table[:, :1]], dim=1), idx, w)
     with pytest.raises(ValueError, match="device meta"):
         tf.fetch4(table.to("meta"), idx.to("meta"), w.to("meta"))
     with pytest.raises(ValueError, match="int32"):
@@ -319,6 +321,56 @@ def test_bitmap_fetch_rgb(scenes, tid, with_duv):
                                  jd if with_duv else None)
     got = ptex.bitmap_fetch_rgb(ps, tid, t(u), t(v), pd if with_duv else None)
     _close(want, got)
+
+
+def _bitmap_taps_from_meta(scene, tex_id, u, v, duv=None):
+    """bitmap_taps as the port computed it before the scene carried its
+    level table: each call built the texture's (offset, W, H) rows from the
+    static meta."""
+    W0, H0, levels = scene.bitmap_meta[tex_id]
+    u = u - torch.floor(u)
+    v = v - torch.floor(v)
+    if duv is None:
+        lvl = torch.zeros_like(u)
+    else:
+        (dudx, dvdx), (dudy, dvdy) = duv
+        fp = torch.maximum(torch.maximum(torch.abs(dudx), torch.abs(dudy)) * W0,
+                           torch.maximum(torch.abs(dvdx), torch.abs(dvdy)) * H0)
+        lvl = torch.clamp(torch.floor(torch.log2(torch.clamp(fp, min=1.0))), 0.0,
+                          len(levels) - 1.0)
+    has_lvl = lvl >= 0.0
+    geo = torch.tensor(levels, dtype=torch.int32)[torch.where(has_lvl, lvl, 0.0).to(torch.int64)]
+    off, W, H = geo[:, 0], geo[:, 1], geo[:, 2]
+    fu, fv = u * W.to(torch.float32) - 0.5, v * H.to(torch.float32) - 0.5
+    j0, i0 = torch.floor(fu), torch.floor(fv)
+    tu, tv = fu - j0, fv - i0
+    j0w, j1w = torch.remainder(j0.to(torch.int32), W), torch.remainder(j0.to(torch.int32) + 1, W)
+    i0w, i1w = torch.remainder(i0.to(torch.int32), H), torch.remainder(i0.to(torch.int32) + 1, H)
+    idx4 = torch.stack([off + i0w * W + j0w, off + i0w * W + j1w,
+                        off + i1w * W + j0w, off + i1w * W + j1w])
+    w4 = torch.stack([(1.0 - tu) * (1.0 - tv), tu * (1.0 - tv), (1.0 - tu) * tv, tu * tv])
+    return (torch.where(has_lvl[None, :], idx4, 0).to(torch.int32),
+            torch.where(has_lvl[None, :], w4, 0.0))
+
+
+@pytest.mark.parametrize("with_duv", [False, True])
+@pytest.mark.parametrize("name,tid", [("envlit", 0), ("two", 0), ("two", 1)])
+def test_bitmap_taps_level_table(scenes, name, tid, with_duv):
+    """The scene's (offset, W, H) level table, built once at compile time,
+    gives bitmap_taps the same taps as the per-call table it replaced;
+    NaN footprints select no level."""
+    _, ps = scenes[name]
+    levels = ps.bitmap_meta[tid][2]
+    assert ps.bitmap_levels.dtype == torch.int32 and ps.bitmap_levels.device == ps.device
+    assert torch.equal(ps.bitmap_levels[tid, :len(levels)], torch.tensor(levels, dtype=torch.int32))
+    u, v, duv = _uv_duv(tid + 30)
+    duv[:, 20:24] = np.nan
+    pd = ((t(duv[0]), t(duv[1])), (t(duv[2]), t(duv[3]))) if with_duv else None
+    got = ptex.bitmap_taps(ps, tid, t(u), t(v), pd)
+    want = _bitmap_taps_from_meta(ps, tid, t(u), t(v), pd)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    if with_duv:
+        assert (got[1][:, 20:24] == 0).all()
 
 
 def _slot_cols(kind, seed):

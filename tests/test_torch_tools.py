@@ -1,7 +1,9 @@
-"""The port's kernel build helper and the closest-hit stage profiler, on the
-CPU: library naming and build failures without nvcc, and the profiler's
-schedule statistics on the bunny stand-in's camera rays."""
+"""The port's kernel build helper and its profilers, on the CPU: library
+naming and build failures without nvcc, the closest-hit profiler's schedule
+statistics on the bunny stand-in's camera rays, the texel-fetch profiles'
+cells, bounds and lever variants."""
 
+import re
 import shutil
 
 import numpy as np
@@ -14,6 +16,8 @@ from misaki_tpu_torch.accel import cluster as cl
 from misaki_tpu_torch.render import driver
 from misaki_tpu_torch.scene.compiler import load_and_compile
 from misaki_tpu_torch.tools import profile_cluster_frame as pcf
+from misaki_tpu_torch.tools import profile_texel_fetch as ptf
+from misaki_tpu_torch.tools import profile_texel_fetch_levers as lev
 from misaki_tpu_torch.utils import cuda_build
 
 
@@ -102,3 +106,69 @@ def test_stage_profile_needs_cuda(tmp_path):
         pytest.skip("runs the profile itself on a CUDA machine (tests/test_torch_kernels.py)")
     with pytest.raises(RuntimeError, match="CUDA"):
         pcf.profile(out=tmp_path / "p.md")
+
+
+def test_texel_fetch_profile_needs_cuda(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("the texel-fetch profile runs on a CUDA machine (chip_smoke.py phase 6)")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ptf.profile(out=tmp_path / "p.md")
+
+
+def test_texel_fetch_lever_profile_needs_cuda(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("the lever profile runs on a CUDA machine (tests/test_torch_kernels.py)")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        lev.profile(out=tmp_path / "p.md")
+
+
+def test_lever_variants_are_the_sources_cases():
+    """The variants the lever profile names are exactly the (stride, levers)
+    cases that texel_fetch_levers.cu launches, and include the port's set
+    (stream evict-first and row spans on the (N, 3) table)."""
+    flags = {"EF": lev.EF, "EL": lev.EL, "SP": lev.SPANS, "TL": lev.TWO_LANES}
+    cases = {(int(stride), sum(flags[f.strip()] for f in expr.split("|")) if expr else 0)
+             for stride, expr in re.findall(r"case (\d) \* 16(?: \+ \(?([A-Z| ]+?)\)?)?:",
+                                            lev.SRC.read_text())}
+    variants = [(stride, levers) for _, stride, levers in lev.VARIANTS]
+    assert len(set(variants)) == len(variants) and set(variants) == cases
+    assert (3, lev.EF | lev.SPANS) in cases
+
+
+@pytest.mark.parametrize("w99,sectors,texels", [(0.0, 3, 4), (1.0, 4, 5)])
+def test_fetch_sector_bytes(w99, sectors, texels):
+    """Texels 0, 1, 2 and 8 of the (N, 3) table touch sectors {0, 1, 3}
+    (texel 2 straddles sectors 0 and 1); texel 99 adds sector 37 when its
+    tap is live, nothing when it is dead; the stream adds 44 B per lane."""
+    table = torch.zeros((100, 3))
+    idx = torch.tensor([[0, 1], [1, 2], [8, 99], [0, 8]], dtype=torch.int32)
+    w = torch.tensor([[1.0, 1.0], [1.0, 1.0], [1.0, w99], [1.0, 1.0]])
+    assert ptf.sector_bytes(table, idx, w) == sectors * 32 + 2 * 44
+    ms, by, n = ptf.fetch_bound(table, idx, w)
+    assert n == texels and by == "bytes"
+    assert ms == pytest.approx((2 * 44 + texels * 12) / 3.35e9)
+
+
+def test_texel_fetch_profile_cells(tmp_path):
+    """The profile's cells on a small envlit scene on the CPU: every cell
+    has its lanes and a contiguous (N, 3) table, the split launches their
+    live taps, the L2 cell its 4 MB table."""
+    from misaki_tpu_torch.render import texel_fetch as tf
+    from misaki_tpu_torch.scenes.envlit import assets
+
+    scene = load_and_compile(str(assets.write_assets(tmp_path, (64, 128), 64)), device="cpu")
+    cells = ptf.make_cells(scene, n=4096)
+    assert set(cells) == set(ptf.CELLS)
+    for name, (table, idx4, w4) in cells.items():
+        assert idx4.shape == w4.shape == (4, 4096) and idx4.dtype == torch.int32
+        live = ptf.live_taps(table, idx4, w4).float().mean().item()
+        # the raster lands on texel centres at odd levels: a weight of 0
+        assert live == 0.0 if name == "split_dead" else live > (
+            0.5 if name == "bitmap_camera_mips" else 0.99)
+        assert table.shape[1] == 3 and table.is_contiguous()
+        assert torch.equal(tf.fetch4(table, idx4, w4), tf.fetch4_plain(table, idx4, w4))
+    assert (cells["split_hot"][1] == 0).all()
+    assert cells["split_l2"][0].shape[0] == min((4 << 20) // 12, 64 * 128)
+    # the NEE taps follow the sky's importance: fewer distinct texels
+    assert (torch.unique(cells["env_nee"][1]).numel()
+            < torch.unique(cells["env_random"][1]).numel())
