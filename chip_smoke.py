@@ -33,7 +33,21 @@ Phases, one line each; any failure exits non-zero:
      and the texel fetch's device time per launch in the frame; image
      checks; a small envlit render on cuda against the CPU;
   8. the closest-hit stage profile (misaki_tpu_torch.tools.profile_cluster_frame)
-     on the bunny stand-in's camera rays and on random rays.
+     on the bunny stand-in's camera rays and on random rays;
+  9. the material gallery (misaki_tpu_torch/scenes/materials/: nine spheres,
+     one per BSDF kind but null, the gold ball's GGX alpha from a 256^2
+     bitmap, a constant environment and a point light) at the benchmark
+     spec through render() on cuda, as in phase 4, with the launches of all
+     three kernels checked; device busy share and top kernels from one
+     profiled frame; image checks (finite and non-negative, every ball's
+     mean off the floor's, the glass balls not black); a small gallery
+     render on cuda against the CPU;
+ 10. Figure 2 and Figure 3, the rough-conductor and rough-dielectric test
+     balls (misaki_tpu_torch/scenes/testball/), at their declared 1280x720,
+     128 spp (max_depth 5 and 7): a small warm-up render, then one timed
+     frame each with the cluster launches checked; the same image checks;
+     device busy share and top kernels from a profiled 16 spp frame at
+     1280x720; a small render of each on cuda against the CPU.
 Every kernel time is a device time taken one way
 (`profile_cluster_frame.device_ms`: CUDA events around launches enqueued
 while a device sleep holds the stream, so the host's launch cost is not in
@@ -51,6 +65,8 @@ ROOT = Path(__file__).resolve().parent
 OUT_DIR = ROOT / "chiprun_out"
 CBOX_XML = ROOT / "misaki_tpu_torch" / "scenes" / "cbox" / "scene.xml"
 SCENE_BUILD = ROOT / "build" / "scenes" / "envlit"
+GALLERY_BUILD = ROOT / "build" / "scenes" / "materials"
+TESTBALL_DIR = ROOT / "misaki_tpu_torch" / "scenes" / "testball"
 
 # benchmark spec of the main path (bench.py:29-67)
 BENCH_W, BENCH_H, BENCH_SPP, BENCH_DEPTH, BENCH_CHUNK = 256, 256, 64, 4, 1 << 20
@@ -206,30 +222,35 @@ def read_counts():
             "fetch": tf.fetch_launches}
 
 
-def timed_frames(scene, label, want_per_chunk):
-    """A warm-up frame, then N_FRAMES timed frames of `scene` on cuda with
-    every launch count set to 0 just before them and read just after; fails
-    unless the counts are N_FRAMES * chunks * `want_per_chunk`. Returns
-    (last frame's output, seconds per frame, rays/s, launches)."""
+def timed_frames(scene, label, want_per_chunk, n_frames=N_FRAMES, warmup=None):
+    """A warm-up frame (of `warmup`, else of `scene`), then `n_frames` timed
+    frames of `scene` on cuda with every launch count set to 0 just before
+    them and read just after; fails unless the counts are n_frames * chunks
+    * `want_per_chunk`. Rays per frame count `bench.py:65-68`'s way: W * H *
+    spp * (1 + 2 * bounce iterations). Returns (last frame's output, seconds
+    per frame, rays/s, launches)."""
     import torch
 
     from misaki_tpu_torch.render.driver import render
+    from misaki_tpu_torch.render.integrator import n_bounce_iters
 
     n_samples = scene.film_width * scene.film_height * scene.spp
     n_chunks = -(-n_samples // BENCH_CHUNK)
-    render(scene, seed=0, chunk_size=BENCH_CHUNK, depth_cap=BENCH_DEPTH)  # warm-up
+    n_iters = n_bounce_iters(scene, BENCH_DEPTH)
+    render(scene if warmup is None else warmup, seed=0, chunk_size=BENCH_CHUNK,
+           depth_cap=BENCH_DEPTH)
     torch.cuda.synchronize()
     reset_counts()
     t0 = time.perf_counter()
-    for i in range(N_FRAMES):
+    for i in range(n_frames):
         out = render(scene, seed=i + 1, chunk_size=BENCH_CHUNK, depth_cap=BENCH_DEPTH)
     torch.cuda.synchronize()
-    dt = (time.perf_counter() - t0) / N_FRAMES
+    dt = (time.perf_counter() - t0) / n_frames
     launches = read_counts()
-    want = {k: N_FRAMES * n_chunks * v for k, v in want_per_chunk.items()}
-    rays_per_s = n_samples * (1 + 2 * BENCH_DEPTH) / dt
-    phase(label, f"{scene.film_width}x{scene.film_height} {scene.spp} spp depth {BENCH_DEPTH}: "
-                 f"{dt:.4f} s/frame, {rays_per_s:.6e} rays/s ({N_FRAMES} frames, "
+    want = {k: n_frames * n_chunks * v for k, v in want_per_chunk.items()}
+    rays_per_s = n_samples * (1 + 2 * n_iters) / dt
+    phase(label, f"{scene.film_width}x{scene.film_height} {scene.spp} spp, {n_iters} bounce "
+                 f"iterations: {dt:.4f} s/frame, {rays_per_s:.6e} rays/s ({n_frames} frames, "
                  f"{n_chunks} chunks of {BENCH_CHUNK}); launches {launches} expected {want}")
     if launches != want:
         fail(f"phase {label}: kernel launch counts {launches} != expected {want}")
@@ -255,6 +276,60 @@ def cuda_vs_cpu(scene_cpu, label):
     return mean_rel, l1_rel
 
 
+def centre_hits(scene):
+    """The first hit of each pixel's centre ray (its first sample's camera
+    ray), as compute_interaction gives it, and the rays."""
+    import torch
+
+    from misaki_tpu_torch.accel import traverse
+    from misaki_tpu_torch.render import driver, interaction
+
+    lane = torch.arange(scene.film_width * scene.film_height, dtype=torch.int64,
+                        device="cuda") * scene.spp
+    ray, _, _ = driver.primary_rays(scene, lane, 0)
+    hit = traverse.intersect(scene, ray["o"], ray["d"], ray["mint"], ray["maxt"])
+    return interaction.compute_interaction(scene, hit, ray["o"], ray["d"], ray["wavelengths"])
+
+
+def ball_checks(scene, rgb, balls, floor, label):
+    """Image checks of a frame of spheres on a floor: finite and
+    non-negative everywhere; over the pixels whose centre ray first hits a
+    ball's material, the mean luminance differs from the floor's by more
+    than 2% of it; and a glass ball (rough or smooth dielectric) is not
+    black, its mean above a tenth of the floor's. `balls`: one tuple of
+    shape indices per ball (a test ball is two coincident meshes); `floor`:
+    a shape index. Returns {name: bool}."""
+    import numpy as np
+    import torch
+
+    from misaki_tpu_torch.scene.types import BSDF_DIELECTRIC, BSDF_ROUGH_DIELECTRIC, MC_KIND
+
+    si = centre_hits(scene)
+    mat = torch.where(si["valid"], si["bsdf"], -1).cpu().numpy().reshape(rgb.shape[:2])
+    rows = scene.shape_bsdf.cpu().numpy()
+    kinds = scene.materials.params[MC_KIND].cpu().numpy()
+    lum = 0.212671 * rgb[..., 0] + 0.715160 * rgb[..., 1] + 0.072169 * rgb[..., 2]
+    floor_px = mat == rows[floor]
+    floor_mean = float(lum[floor_px].mean()) if floor_px.any() else 0.0
+    checks = {"finite": bool(np.isfinite(rgb).all()), "non_negative": bool(rgb.min() >= 0.0),
+              "floor_seen": bool(floor_px.sum() >= 50)}
+    means = {}
+    for shapes in balls:
+        px = np.isin(mat, rows[list(shapes)])
+        m = float(lum[px].mean()) if px.sum() >= 20 else float("nan")
+        kind = int(kinds[rows[shapes[0]]])
+        name = f"shape{'+'.join(map(str, shapes))}_kind{kind}"
+        means[name] = m
+        checks[f"{name}_off_floor"] = bool(abs(m - floor_mean) > 0.02 * floor_mean)
+        if kind in (BSDF_DIELECTRIC, BSDF_ROUGH_DIELECTRIC):
+            checks[f"{name}_glass_lit"] = bool(m > 0.1 * floor_mean)
+    phase(label, f"image mean {rgb.mean(axis=(0, 1)).tolist()}; floor luminance "
+                 f"{floor_mean:.4f}; ball luminance {means}; checks {checks}")
+    if not all(checks.values()):
+        fail(f"phase {label}: image checks failed {checks}")
+    return checks
+
+
 def floor_checker_correlation(scene, rgb):
     """Correlation, over the pixels whose centre ray first hits a bitmap
     material, between the image's luminance and the light/dark tile of the
@@ -262,17 +337,11 @@ def floor_checker_correlation(scene, rgb):
     slot's uv transform)."""
     import torch
 
-    from misaki_tpu_torch.accel import traverse
-    from misaki_tpu_torch.render import driver, interaction
     from misaki_tpu_torch.render import textures as ptex
     from misaki_tpu_torch.scene.types import MC_REFL, SPEC_SLOT_COLS
     from misaki_tpu_torch.scenes.envlit import assets
 
-    W, H = scene.film_width, scene.film_height
-    lane = torch.arange(W * H, dtype=torch.int64, device="cuda") * scene.spp
-    ray, _, _ = driver.primary_rays(scene, lane, 0)
-    hit = traverse.intersect(scene, ray["o"], ray["d"], ray["mint"], ray["maxt"])
-    si = interaction.compute_interaction(scene, hit, ray["o"], ray["d"], ray["wavelengths"])
+    si = centre_hits(scene)
     cols = scene.materials.params[:, si["bsdf"].to(torch.int64)]
     slot = cols[MC_REFL: MC_REFL + SPEC_SLOT_COLS]
     on_floor = si["valid"] & (torch.abs(slot[0] - ptex.SLOT_BITMAP) < 0.25)
@@ -295,13 +364,13 @@ def main():
     # ---- phase 1: the card
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
-    name = torch.cuda.get_device_name(0)
+    device_name = torch.cuda.get_device_name(0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60)
     smi_line = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 and smi.stdout.strip() \
         else "nvidia-smi: not available"
-    phase("1", f"device {name}, count {torch.cuda.device_count()}, torch {torch.__version__}, "
+    phase("1", f"device {device_name}, count {torch.cuda.device_count()}, torch {torch.__version__}, "
                f"cuda {torch.version.cuda}")
     print(smi_line, flush=True)
     OUT_DIR.mkdir(exist_ok=True)
@@ -315,6 +384,7 @@ def main():
     from misaki_tpu_torch.scene import procedural
     from misaki_tpu_torch.scene.compiler import load_and_compile
     from misaki_tpu_torch.scenes.envlit import assets
+    from misaki_tpu_torch.scenes.materials import assets as materials_assets
     from misaki_tpu_torch.tools import profile_cluster_frame
     from misaki_tpu_torch.tools.tie_case import merge_clusters
     from misaki_tpu_torch.utils import cuda_build
@@ -454,17 +524,80 @@ def main():
     if prof["launches"] != want_launches:
         fail(f"phase 8: {prof['launches']} closest-hit launches, expected {want_launches}")
 
+    # ---- phase 9: the material gallery at the benchmark spec
+    t0 = time.perf_counter()
+    gallery_xml = materials_assets.prepared(GALLERY_BUILD)
+    gallery = load_and_compile(str(gallery_xml))
+    phase("9", f"gallery {gallery_xml.relative_to(ROOT)}: {gallery.n_faces} faces, "
+               f"{gallery.cluster.n_clusters} clusters, BSDF kinds {gallery.bsdf_kinds}, "
+               f"bitmap slots {gallery.bitmap_slots}, emitter kinds {gallery.emitter_kinds}, "
+               f"max_depth {gallery.max_depth}; assets and compile "
+               f"{time.perf_counter() - t0:.2f} s")
+    n_iters = n_bounce_iters(gallery, BENCH_DEPTH)
+    # texel fetches per chunk: each bounce's material_params evaluates every
+    # slot that holds a bitmap (the gold ball's alpha_u and alpha_v), one
+    # fetch per bitmap of the scene; the environment is `constant`, so no
+    # envmap fetch (escape or NEE) runs
+    n_bitmaps = len(gallery.bitmap_slots) * len(gallery.bitmap_meta)
+    out, dt_gal, rays_gal, launches_gal = timed_frames(
+        gallery, "9", {"closest": 1 + n_iters, "anyhit": n_iters, "fetch": n_iters * n_bitmaps})
+    rgb = out["rgb"].cpu().numpy()
+    np.save(OUT_DIR / "gallery_bench_rgb.npy", rgb)
+    ball_checks(gallery, rgb, [(i,) for i in range(9)], 9, "9")
+    profile_gal = try_profile(gallery, dt_gal, "9", "profile_gallery.txt")
+    small = load_and_compile(str(gallery_xml), spp=2, width=32, height=24, device="cpu")
+    gal_cuda_vs_cpu = cuda_vs_cpu(small, "9")
+
+    # ---- phase 10: Figure 2 and Figure 3 at their declared spec
+    balls = {}
+    for fig, xml_name in (("figure2", "roughconductor"), ("figure3", "roughdielectric")):
+        xml = TESTBALL_DIR / f"{xml_name}.xml"
+        t0 = time.perf_counter()
+        tb = load_and_compile(str(xml))
+        n_iters = n_bounce_iters(tb, BENCH_DEPTH)
+        phase("10", f"{fig} {xml.relative_to(ROOT)}: {tb.n_faces} faces, "
+                    f"{tb.cluster.n_clusters} clusters, BSDF kinds {tb.bsdf_kinds}, max_depth "
+                    f"{tb.max_depth}; compile {time.perf_counter() - t0:.2f} s")
+        warm = load_and_compile(str(xml), spp=4, width=128, height=72)
+        out, dt_tb, rays_tb, launches_tb = timed_frames(
+            tb, "10", {"closest": 1 + n_iters, "anyhit": n_iters, "fetch": 0},
+            n_frames=1, warmup=warm)
+        rgb = out["rgb"].cpu().numpy()
+        np.save(OUT_DIR / f"{fig}_{xml_name}_rgb.npy", rgb)
+        # shapes: Mesh000 the stand, Mesh001 and Mesh003 the ball, Mesh002
+        # the core, then the floor
+        ball_checks(tb, rgb, [(1, 3)], 4, "10")
+        # device busy share from a 16 spp frame at the declared resolution
+        # (15 of the frame's 113 chunks: profiling all 113 chunks' ~1M
+        # launches costs minutes), against the same frame unprofiled
+        part = tb.replace(spp=16)
+        t0 = time.perf_counter()
+        driver.render(part, seed=12, chunk_size=BENCH_CHUNK, depth_cap=BENCH_DEPTH)
+        torch.cuda.synchronize()
+        part_s = time.perf_counter() - t0
+        prof_tb = try_profile(part, part_s, "10", f"profile_{fig}.txt")
+        small = load_and_compile(str(xml), spp=2, width=32, height=18, device="cpu")
+        balls[fig] = {"scene": xml_name, "frame_s": dt_tb, "rays_per_s": rays_tb,
+                      "launches": launches_tb, "spp16_frame_s": part_s, "spp16_profile": prof_tb,
+                      "cuda_vs_cpu": cuda_vs_cpu(small, "10")}
+
     main_case = report["cbox_camera"]
     fa, fb, fn = (fetch_report[c] for c in ("env_random", "bitmap_camera_mips", "env_nee"))
+    main_runs = {"cbox": (launches_cbox, N_FRAMES), "envlit": (launches_env, N_FRAMES),
+                 "gallery": (launches_gal, N_FRAMES),
+                 **{fig: (b["launches"], 1) for fig, b in balls.items()}}
+
+    def launches(key):
+        return sum(counts[key] for counts, _ in main_runs.values())
 
     def per_frame(key):
-        return {"cbox": launches_cbox[key] / N_FRAMES, "envlit": launches_env[key] / N_FRAMES}
+        return {run: counts[key] / frames for run, (counts, frames) in main_runs.items()}
 
     kernels = {"kernels": [
         {"name": "cluster_closest_hit", "route": "cuda",
          "source": "misaki_tpu_torch/csrc/cluster.cu",
          "replaces": "misaki_tpu/accel/cluster.py:367",
-         "launches": launches_cbox["closest"] + launches_env["closest"],
+         "launches": launches("closest"),
          "launches_per_frame": per_frame("closest"),
          "max_abs_err": main_case["t_max_abs"],
          "ms": main_case["closest_ms"], "plain_ms": main_case["closest_plain_ms"],
@@ -473,7 +606,7 @@ def main():
         {"name": "cluster_any_hit", "route": "cuda",
          "source": "misaki_tpu_torch/csrc/cluster.cu",
          "replaces": "misaki_tpu/accel/cluster.py:467",
-         "launches": launches_cbox["anyhit"] + launches_env["anyhit"],
+         "launches": launches("anyhit"),
          "launches_per_frame": per_frame("anyhit"),
          "max_abs_err": main_case["anyhit_max_abs_err"],
          "ms": main_case["anyhit_ms"], "plain_ms": main_case["anyhit_plain_ms"],
@@ -482,7 +615,7 @@ def main():
         {"name": "texel_fetch", "route": "cuda",
          "source": "misaki_tpu_torch/csrc/texel_fetch.cu",
          "replaces": "misaki_tpu/render/paged_fetch.py:55",
-         "launches": launches_env["fetch"],
+         "launches": launches("fetch"),
          "launches_per_frame": per_frame("fetch"),
          "max_abs_err": max(c["max_abs_err"] for c in fetch_report.values()),
          "ms": fa["ms"], "plain_ms": fa["plain_ms"],
@@ -507,15 +640,18 @@ def main():
          "random_rays_ms": ms["closest-hit kernel, random rays"]},
     ]}
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
-        {"device": name, "nvidia_smi": smi_line, "cluster_kernels": report,
+        {"device": device_name, "nvidia_smi": smi_line, "cluster_kernels": report,
          "texel_fetch": fetch_report, "stage_profile": prof,
          "cbox": {"frame_s": dt, "rays_per_s": rays_per_s, "launches": launches_cbox,
                   "profile": profile_cbox},
          "envlit": {"frame_s": dt_env, "rays_per_s": rays_env, "launches": launches_env,
                     "profile": profile_env, "checker_corr": corr,
-                    "cuda_vs_cpu": [env_mean_rel, env_l1_rel]}}, indent=1))
+                    "cuda_vs_cpu": [env_mean_rel, env_l1_rel]},
+         "gallery": {"frame_s": dt_gal, "rays_per_s": rays_gal, "launches": launches_gal,
+                     "profile": profile_gal, "cuda_vs_cpu": gal_cuda_vs_cpu},
+         "testballs": balls}, indent=1))
     print(json.dumps(kernels), flush=True)
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name,
                                              "count": torch.cuda.device_count()}}), flush=True)
 
 

@@ -57,3 +57,7 @@ def sin_theta_2(v):
 
 def sin_theta(v):
     return torch.sqrt(sin_theta_2(v))
+
+
+def tan_theta(v):
+    return sin_theta(v) / v[2]

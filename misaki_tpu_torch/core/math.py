@@ -22,6 +22,43 @@ def safe_sqrt(x):
     return torch.sqrt(torch.clamp(x, min=1e-20))
 
 
+def safe_rsqrt(x):
+    return 1.0 / torch.sqrt(torch.clamp(x, min=F32_TINY))
+
+
+def safe_acos(x):
+    return torch.acos(torch.clamp(x, -1.0, 1.0))
+
+
+def safe_asin(x):
+    return torch.asin(torch.clamp(x, -1.0, 1.0))
+
+
+def sqr(x):
+    return x * x
+
+
+def lerp(a, b, t):
+    return a * (1.0 - t) + b * t
+
+
+def dot(a, b):
+    """Batched dot product over the trailing axis, keepdims dropped."""
+    return torch.sum(a * b, dim=-1)
+
+
+def norm(v):
+    return torch.sqrt(torch.sum(v * v, dim=-1))
+
+
+def normalize(v):
+    return v * safe_rsqrt(torch.sum(v * v, dim=-1, keepdim=True))
+
+
+def cross(a, b):
+    return torch.linalg.cross(a, b, dim=-1)
+
+
 def mis_power2(pdf_a, pdf_b):
     """Power-2 MIS heuristic (reference: integrators/path.cpp:127-131)."""
     a2 = pdf_a * pdf_a

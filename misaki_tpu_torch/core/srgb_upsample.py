@@ -120,3 +120,18 @@ def srgb_model_eval(coeff, wavelengths):
     v = (c0[None, :] * wavelengths + c1[None, :]) * wavelengths + c2[None, :]
     rsqrt = 1.0 / torch.sqrt(v * v + 1.0)
     return torch.clamp(0.5 * v * rsqrt + 0.5, min=0.0)
+
+
+def srgb_model_mean(coeff):
+    """Mean reflectance of the sigmoid model over 16 equally spaced
+    wavelengths on 360..830 nm, in float32. coeff: (..., 3) -> (...).
+
+    The reference's srgb_model_mean (srgb.h:21-36) spaces its wavelengths
+    from WAVELENGTH_MIN to WAVELENGTH_MIN, so it evaluates at 360 nm only;
+    this is the evident intent, as in misaki_tpu. Only roughplastic's lobe
+    sampling weight reads it."""
+    lam = torch.linspace(360.0, 830.0, 16, dtype=torch.float32)
+    c = torch.as_tensor(np.asarray(coeff), dtype=torch.float32)
+    v = (c[..., 0:1] * lam + c[..., 1:2]) * lam + c[..., 2:3]
+    s = torch.clamp(0.5 * v / torch.sqrt(v * v + 1.0) + 0.5, min=0.0)
+    return torch.mean(s, dim=-1)

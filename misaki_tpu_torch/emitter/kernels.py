@@ -1,5 +1,5 @@
 """Wavefront emitter evaluation: NEE direct sampling, pdf, and radiance
-(reference: src/librender/emitters/{area,constant,envmap}.cpp and the
+(reference: src/librender/emitters/{area,constant,envmap,point}.cpp and the
 uniform emitter selection in scene.cpp:68-112).
 
 Radiance spectra are (sigmoid coeff x 95-bin curve) models; per-emitter work
@@ -7,8 +7,8 @@ is unrolled over `scene.emitter_kinds` with lane masks, as in
 `misaki_tpu.emitter.kernels`. The envmap is a lat-long RGB table, fetched
 bilinearly through the texel-fetch kernel (render/texel_fetch.py) and
 importance-sampled by its 2D luminance CDF with exact per-lane binary
-searches. This port carries area, constant and envmap emitters; a scene
-with another kind raises NotImplementedError naming it.
+searches. A point light is a delta position light: NEE takes its
+contribution unweighted by MIS, and no BSDF ray ever hits it.
 """
 
 import torch
@@ -29,7 +29,7 @@ from misaki_tpu_torch.scene.types import (
     EM_AREA,
     EM_CONSTANT,
     EM_ENVMAP,
-    EMITTER_NAMES,
+    EM_POINT,
 )
 
 
@@ -234,11 +234,8 @@ def eval_environment(scene, d, wavelengths, rad=None):
     the envmap's lat-long lookup)."""
     if not scene.has_environment:
         return torch.zeros(wavelengths.shape, dtype=torch.float32, device=wavelengths.device)
-    kind = scene.emitter_kinds[scene.environment_idx]
-    if kind == EM_ENVMAP:
+    if scene.emitter_kinds[scene.environment_idx] == EM_ENVMAP:
         return _env_radiance_spec(scene, d, wavelengths)
-    if kind != EM_CONSTANT:
-        raise NotImplementedError(f"emitter '{EMITTER_NAMES.get(kind, kind)}'")
     return radiance(scene, scene.environment_idx, wavelengths, rad)
 
 
@@ -302,8 +299,20 @@ def _sample_constant_emitter(scene, ei, ref_p, wavelengths, u2, rad=None):
     return {"d": d, "dist": dist, "pdf": pdf, "spec": rad_s / pdf[None, :]}
 
 
+def _sample_point_emitter(scene, ei, ref_p, wavelengths, u2, rad=None):
+    """Delta position light with 1/r^2 falloff (emitters/point.cpp); its
+    radiance model holds the intensity."""
+    d = vec.sub(vec.splat3(scene.emitters.position[ei], ref_p[0]), ref_p)
+    dist2 = vec.norm2(d)
+    dist = torch.sqrt(dist2)
+    d = vec.scale(d, 1.0 / torch.clamp(dist, min=1e-20))
+    rad_s = radiance(scene, ei, wavelengths, rad)
+    return {"d": d, "dist": dist, "pdf": torch.ones_like(dist),
+            "spec": rad_s / torch.clamp(dist2, min=1e-20)[None, :]}
+
+
 _SAMPLERS = {EM_AREA: _sample_area_emitter, EM_CONSTANT: _sample_constant_emitter,
-             EM_ENVMAP: _sample_envmap_emitter}
+             EM_POINT: _sample_point_emitter, EM_ENVMAP: _sample_envmap_emitter}
 
 
 def sample_emitter_direct(scene, ref_p, wavelengths, u2, rad=None):
@@ -316,9 +325,6 @@ def sample_emitter_direct(scene, ref_p, wavelengths, u2, rad=None):
     n = scene.n_emitters
     L = ref_p[0].shape[0]
     dev = ref_p[0].device
-    for k in scene.emitter_kinds:
-        if k not in _SAMPLERS:
-            raise NotImplementedError(f"emitter '{EMITTER_NAMES.get(k, k)}'")
     if n == 0:
         z = torch.zeros(L, device=dev)
         return {
@@ -339,9 +345,12 @@ def sample_emitter_direct(scene, ref_p, wavelengths, u2, rad=None):
     u2r = (ux_r, u2[1])
 
     out = None
+    delta = torch.zeros(L, dtype=torch.bool, device=dev)
     for ei in range(n):
         r = _SAMPLERS[scene.emitter_kinds[ei]](scene, ei, ref_p, wavelengths, u2r, rad)
         mask = index == ei
+        if scene.emitter_kinds[ei] == EM_POINT:
+            delta = delta | mask
         if out is None:
             out = r
         else:
@@ -354,15 +363,15 @@ def sample_emitter_direct(scene, ref_p, wavelengths, u2, rad=None):
     if n > 1:
         out["pdf"] = out["pdf"] * (1.0 / n)
         out["spec"] = out["spec"] * n
-    # no delta (point) emitters in this port's set of kinds
-    out["delta"] = torch.zeros(L, dtype=torch.bool, device=dev)
+    out["delta"] = delta
     return out
 
 
 def pdf_emitter_direct(scene, emitter_ids, d, dist, n_at_hit):
     """Scene::pdf_emitter_direct (scene.cpp:105-112) for MIS when a BSDF ray
     hits an emitter. Area: (1/area) * dist^2/|d.n| (shape.cpp:82-88);
-    constant env: uniform-sphere pdf; envmap: the 2D-CDF sampler's pdf."""
+    constant env: uniform-sphere pdf; envmap: the 2D-CDF sampler's pdf; a
+    point light, which no ray hits, 0."""
     pdf = torch.zeros_like(dist)
     dp = torch.abs(vec.dot(d, n_at_hit))
     for ei in range(scene.n_emitters):
@@ -381,8 +390,6 @@ def pdf_emitter_direct(scene, emitter_ids, d, dist, n_at_hit):
         elif kind == EM_ENVMAP:
             u, v, sin_t = _env_dir_to_uv(scene, d)
             pdf = torch.where(mask & (sin_t > 1e-6), _env_pdf_sa(scene, u, v, sin_t), pdf)
-        else:
-            raise NotImplementedError(f"emitter '{EMITTER_NAMES.get(kind, kind)}'")
     if scene.n_emitters > 1:
         pdf = pdf / scene.n_emitters
     return torch.where(emitter_ids >= 0, pdf, 0.0)

@@ -1,12 +1,15 @@
 """Scene compiler: plugin-dict graph -> CompiledScene (tables of tensors).
 
-The host side of `misaki_tpu.scene.compiler`, in NumPy, for the subset of
-plugins this port renders: obj / rectangle / sphere shapes, the `diffuse`
-BSDF with plain, checkerboard or `bitmap` reflectance, `area`, `constant` and
-`envmap` emitters, the perspective sensor with an `hdrfilm` or `rgbfilm` and
-a box or gaussian filter, and the `path` integrator. On those scenes it
-produces the same arrays as the JAX compiler. Plugins outside the subset
-raise NotImplementedError with their name.
+The host side of `misaki_tpu.scene.compiler`, in NumPy, for the plugins this
+port renders: obj / rectangle / sphere shapes; every BSDF of misaki_tpu
+(diffuse, roughconductor, conductor, roughdielectric, dielectric,
+roughplastic, disney / principled, null, and the twosided and mask
+adapters) with plain, checkerboard or `bitmap` textures; `area`, `constant`,
+`envmap` and `point` emitters; the perspective sensor with an `hdrfilm` or
+`rgbfilm` and a box or gaussian filter; and the `path` integrator. On those
+scenes it produces the same arrays as the JAX compiler. Media raise
+NotImplementedError with their name; the other integrators compile and
+raise when rendered.
 
 Two differences from the JAX compiler:
   * every scene gets the cluster accel (`accel/cluster.py`), built from the
@@ -23,15 +26,23 @@ import numpy as np
 import torch
 
 from misaki_tpu_torch.accel.cluster import CLUSTER_FACES, build_clusters
+from misaki_tpu_torch.core import microfacet
 from misaki_tpu_torch.core import transform as tr
 from misaki_tpu_torch.core.cie_data import CIE_MAX, CIE_MIN, D65_DATA, D65_TABLE_NORMALIZATION
-from misaki_tpu_torch.core.srgb_upsample import fit_srgb_coeffs
+from misaki_tpu_torch.core.srgb_upsample import fit_srgb_coeffs, srgb_model_mean
 from misaki_tpu_torch.core.table import sigmoid_inverse
 from misaki_tpu_torch.scene import procedural
 from misaki_tpu_torch.scene.obj_loader import load_obj
 from misaki_tpu_torch.scene.types import (
     bitmap_level_table,
+    BSDF_CONDUCTOR,
+    BSDF_DIELECTRIC,
     BSDF_DIFFUSE,
+    BSDF_DISNEY,
+    BSDF_NULL,
+    BSDF_PLASTIC,
+    BSDF_ROUGH_CONDUCTOR,
+    BSDF_ROUGH_DIELECTRIC,
     Camera,
     CompiledScene,
     EF_CDF_HI,
@@ -46,6 +57,7 @@ from misaki_tpu_torch.scene.types import (
     EM_AREA,
     EM_CONSTANT,
     EM_ENVMAP,
+    EM_POINT,
     EmitterTable,
     FC_BSDF,
     FC_E1,
@@ -59,6 +71,7 @@ from misaki_tpu_torch.scene.types import (
     FC_TANGENT,
     FC_UV0,
     Geometry,
+    MASK_FLAG,
     MaterialTable,
     MC_ALPHA_U,
     MC_ALPHA_V,
@@ -73,14 +86,22 @@ from misaki_tpu_torch.scene.types import (
     MC_DS_SPECULAR,
     MC_DS_SUBSURFACE,
     MC_ETA,
+    MC_ETA_RGB,
+    MC_FDR,
     MC_KIND,
     MC_K_RGB,
+    MC_MASK,
+    MC_NONLINEAR,
     MC_OPACITY,
     MC_REFL,
     MC_SPEC_REFL,
     MC_SPEC_TRANS,
+    MC_SSW,
+    MC_TWOSIDED,
     N_FACE_COLS,
     N_MAT_COLS,
+    SCALAR_SLOT_COLS,
+    SPEC_SLOT_COLS,
 )
 
 FACE_BLOCK = 128   # face padding multiple of the geometry rows
@@ -100,6 +121,16 @@ _BSDF_TYPES = {
 }
 _INTEGRATOR_TYPES = {"path", "aov", "debug", "volpath", "direct",
                      "sppm", "photonmapper"}
+_EMITTER_TYPES = {"constant": EM_CONSTANT, "envmap": EM_ENVMAP, "point": EM_POINT}
+_DIST_MAP = {"beckmann": microfacet.BECKMANN, "ggx": microfacet.GGX}
+# Disney's scalar parameters other than roughness, by slot
+_DISNEY_SLOTS = (
+    ("subsurface", MC_DS_SUBSURFACE), ("metallic", MC_DS_METALLIC),
+    ("specular", MC_DS_SPECULAR), ("specular_tint", MC_DS_SPEC_TINT),
+    ("anisotropic", MC_DS_ANISO), ("sheen", MC_DS_SHEEN),
+    ("sheen_tint", MC_DS_SHEEN_TINT), ("clearcoat", MC_DS_CLEARCOAT),
+    ("clearcoat_gloss", MC_DS_CC_GLOSS),
+)
 
 
 # ---------------------------------------------------------------------------
@@ -420,30 +451,149 @@ def _load_envmap(obj, base_dir, max_res=ENV_MAX_RES):
     )
 
 
+def _fresnel_diffuse_reflectance(eta):
+    """fresnel.h:93-125 in float64: the Egan-Hilgeman (eta < 1) and
+    d'Eon-Irving (eta >= 1) fits of the hemispherically integrated Fresnel
+    reflectance."""
+    eta = float(eta)
+    if eta < 1.0:
+        return -1.4399 * eta * eta + 0.7099 * eta + 0.6681 + 0.0636 / eta
+    ie = 1.0 / eta
+    return (0.919317 - 3.4793 * ie + 6.75335 * ie**2
+            - 7.80989 * ie**3 + 4.98554 * ie**4 - 1.36881 * ie**5)
+
+
+def _slot_mean(slot13):
+    """Mean reflectance of a spectral slot (Texture::mean, which steers
+    roughplastic's lobe choice): the sigmoid model's mean for a plain colour,
+    the two colours' average for a checkerboard, and 0.5 for a bitmap, whose
+    mean depends on its texels (the weight only steers sampling)."""
+    if abs(slot13[0] - 2.0) < 0.25:
+        return 0.5
+    mA = float(srgb_model_mean(np.asarray(slot13[1:4])))
+    if slot13[0] > 0.5:
+        return 0.5 * (mA + float(srgb_model_mean(np.asarray(slot13[4:7]))))
+    return mA
+
+
 class _MaterialBuilder:
-    """One packed row per BSDF plugin; this port compiles `diffuse` only."""
+    """One packed row per BSDF plugin (misaki_tpu's layout). `twosided` and
+    `mask` are adapters, flattened into a copy of their nested row with the
+    twosided flag or the mask's opacity slot set."""
 
     def __init__(self, bitmaps=None):
         self.rows = []
         self._cache = {}
         self.bitmaps = bitmaps
 
+    def _spectral(self, obj, name, default, row, base):
+        row[base: base + SPEC_SLOT_COLS] = spectral_slot(obj, name, default, self.bitmaps)
+
+    def _add(self, key, row):
+        self.rows.append(row)
+        self._cache[key] = len(self.rows) - 1
+        return self._cache[key]
+
     def compile(self, obj):
         key = id(obj)
         if key in self._cache:
             return self._cache[key]
-        if obj["type"] != "diffuse":
-            raise NotImplementedError(f"BSDF '{obj['type']}'")
+        t = obj["type"]
+        p = obj["props"]
+        if t == "twosided":
+            nested = [ch for _, ch in obj["children"] if ch["type"] != "twosided"]
+            if not nested:
+                raise ValueError("twosided: a nested one-sided material is required")
+            row = self.rows[self.compile(nested[0])].copy()
+            row[MC_TWOSIDED] = 1.0
+            return self._add(key, row)
+        if t == "mask":
+            # mask.cpp: an opacity texture over ONE nested BSDF; the kernels
+            # make the null lobe from MC_MASK / MC_OPACITY
+            nested = [ch for _, ch in obj["children"]
+                      if ch["type"] in _BSDF_TYPES and ch["type"] != "mask"]
+            if len(nested) != 1:
+                raise ValueError("mask: exactly one nested BSDF required")
+            row = self.rows[self.compile(nested[0])].copy()
+            row[MC_MASK] = 1.0
+            self._spectral(obj, "opacity", 0.5, row, MC_OPACITY)
+            return self._add(key, row)
+
         row = np.zeros(N_MAT_COLS)
         row[MC_ETA] = 1.5
-        row[MC_K_RGB : MC_K_RGB + 3] = 1.0
-        row[MC_DISTR] = 0  # beckmann
-        row[MC_KIND] = BSDF_DIFFUSE
-        row[MC_REFL : MC_REFL + 13] = spectral_slot(obj, "reflectance", 0.5, self.bitmaps)
-        idx = len(self.rows)
-        self.rows.append(row)
-        self._cache[key] = idx
-        return idx
+        row[MC_K_RGB: MC_K_RGB + 3] = 1.0
+        row[MC_DISTR] = _DIST_MAP.get(p.get("distribution", "beckmann"), microfacet.BECKMANN)
+        if t == "diffuse":
+            row[MC_KIND] = BSDF_DIFFUSE
+            self._spectral(obj, "reflectance", 0.5, row, MC_REFL)
+        elif t in ("roughconductor", "conductor"):
+            row[MC_KIND] = BSDF_ROUGH_CONDUCTOR if t == "roughconductor" else BSDF_CONDUCTOR
+            self._spectral(obj, "specular_reflectance", 1.0, row, MC_SPEC_REFL)
+            self._alphas(obj, p, row)
+            row[MC_ETA_RGB: MC_ETA_RGB + 3], row[MC_K_RGB: MC_K_RGB + 3] = \
+                self._conductor_ior(obj, p)
+        elif t in ("roughdielectric", "dielectric"):
+            row[MC_KIND] = BSDF_ROUGH_DIELECTRIC if t == "roughdielectric" else BSDF_DIELECTRIC
+            self._spectral(obj, "specular_reflectance", 1.0, row, MC_SPEC_REFL)
+            self._spectral(obj, "specular_transmittance", 1.0, row, MC_SPEC_TRANS)
+            if t == "roughdielectric":
+                self._alphas(obj, p, row)
+            int_ior = 1.5046 if t == "roughdielectric" else 1.49
+            row[MC_ETA] = float(p.get("int_ior", int_ior)) / float(p.get("ext_ior", 1.00028))
+        elif t == "roughplastic":
+            row[MC_KIND] = BSDF_PLASTIC
+            self._spectral(obj, "diffuse_reflectance", 0.5, row, MC_REFL)
+            self._spectral(obj, "specular_reflectance", 1.0, row, MC_SPEC_REFL)
+            self._alphas(obj, p, row)
+            eta = float(p.get("int_ior", 1.49)) / float(p.get("ext_ior", 1.00028))
+            row[MC_ETA] = eta
+            row[MC_NONLINEAR] = 1.0 if p.get("nonlinear", False) else 0.0
+            row[MC_FDR] = _fresnel_diffuse_reflectance(eta)
+            d_mean = _slot_mean(row[MC_REFL: MC_REFL + SPEC_SLOT_COLS])
+            s_mean = _slot_mean(row[MC_SPEC_REFL: MC_SPEC_REFL + SPEC_SLOT_COLS])
+            row[MC_SSW] = s_mean / max(d_mean + s_mean, 1e-9)
+        elif t in ("disney", "disney_brdf", "principled"):
+            # bsdfs/disney_brdf.cpp:12-27: eleven textured parameters, each
+            # 0.5 by default. base_color takes the reflectance slot and
+            # roughness both alpha slots (the kernel turns it into GGX
+            # alphas); the other nine have slots of their own.
+            row[MC_KIND] = BSDF_DISNEY
+            self._spectral(obj, "base_color", 0.5, row, MC_REFL)
+            r_slot = scalar_slot(obj, "roughness", 0.5, self.bitmaps)
+            row[MC_ALPHA_U: MC_ALPHA_U + SCALAR_SLOT_COLS] = r_slot
+            row[MC_ALPHA_V: MC_ALPHA_V + SCALAR_SLOT_COLS] = r_slot
+            for name, base in _DISNEY_SLOTS:
+                row[base: base + SCALAR_SLOT_COLS] = scalar_slot(obj, name, 0.5, self.bitmaps)
+        elif t == "null":
+            row[MC_KIND] = BSDF_NULL
+        else:
+            raise ValueError(f"Unsupported BSDF plugin '{t}'")
+        return self._add(key, row)
+
+    def _alphas(self, obj, p, row):
+        """alpha_u / alpha_v where either is given, else `alpha` for both."""
+        if "alpha_u" in p or any(n == "alpha_u" for n, _ in obj["children"]):
+            names = ("alpha_u", "alpha_v")
+        else:
+            names = ("alpha", "alpha")
+        for name, base in zip(names, (MC_ALPHA_U, MC_ALPHA_V)):
+            row[base: base + SCALAR_SLOT_COLS] = scalar_slot(obj, name, 0.1, self.bitmaps)
+
+    @staticmethod
+    def _conductor_ior(obj, p):
+        """(eta, k) RGB triples: the `eta` / `k` children's colours, or the
+        properties; (0, 0, 0) and (1, 1, 1) by default."""
+        eta, k = np.zeros(3), np.ones(3)
+        for name, ch in obj["children"]:
+            if name == "eta" and "color" in ch["props"]:
+                eta = np.asarray(ch["props"]["color"], np.float64)
+            if name == "k" and "color" in ch["props"]:
+                k = np.asarray(ch["props"]["color"], np.float64)
+        if "eta" in p:
+            eta = np.asarray(p["eta"], np.float64)
+        if "k" in p:
+            k = np.asarray(p["k"], np.float64)
+        return eta, k
 
     def finalize(self):
         if not self.rows:
@@ -454,7 +604,15 @@ class _MaterialBuilder:
         return MaterialTable(params=params)
 
     def kinds_present(self):
-        return tuple(sorted({int(r[MC_KIND]) for r in self.rows})) or (BSDF_DIFFUSE,)
+        """Sorted tuple of the BSDF kinds the rows use, with the MASK_FLAG
+        pseudo-kind where a row is mask-wrapped: the kernels compute only
+        these models."""
+        if not self.rows:
+            return (BSDF_DIFFUSE,)
+        kinds = {int(r[MC_KIND]) for r in self.rows}
+        if any(r[MC_MASK] > 0.5 for r in self.rows):
+            kinds.add(MASK_FLAG)
+        return tuple(sorted(kinds))
 
     def bitmap_slot_bases(self):
         """Static tuple of slot base columns that reference a bitmap."""
@@ -636,12 +794,8 @@ def compile_scene(desc, spp=None, width=None, height=None, max_depth=None, devic
                 emitter_objs.append((EM_AREA, len(shape_rows), em))
             shape_rows.append({"bsdf": bsdf_idx, "emitter": emitter_idx})
             face_blocks.append(mesh)
-        elif ch["type"] == "constant":
-            emitter_objs.append((EM_CONSTANT, -1, ch))
-        elif ch["type"] == "envmap":
-            emitter_objs.append((EM_ENVMAP, -1, ch))
-        elif ch["type"] == "point":
-            raise NotImplementedError(f"emitter '{ch['type']}'")
+        elif ch["type"] in _EMITTER_TYPES:
+            emitter_objs.append((_EMITTER_TYPES[ch["type"]], -1, ch))
 
     if not face_blocks:
         raise ValueError("Scene has no shapes")
@@ -752,7 +906,8 @@ def compile_scene(desc, spp=None, width=None, height=None, max_depth=None, devic
             em_face_global.append(np.zeros(1, np.int32))
             em_face_cdf.append(np.ones(1, np.float32))
             em_area.append(4.0 * np.pi * radius * radius)
-            env_idx = ei
+            if kind != EM_POINT:
+                env_idx = ei
 
     n_emitters = len(em_kind)
     fmax = max([len(f) for f in em_face_global], default=1)

@@ -22,21 +22,11 @@ BSDF_NULL = 5
 BSDF_PLASTIC = 6
 BSDF_DISNEY = 7
 
-BSDF_NAMES = {
-    BSDF_DIFFUSE: "diffuse", BSDF_ROUGH_CONDUCTOR: "roughconductor",
-    BSDF_ROUGH_DIELECTRIC: "roughdielectric", BSDF_DIELECTRIC: "dielectric",
-    BSDF_CONDUCTOR: "conductor", BSDF_NULL: "null", BSDF_PLASTIC: "roughplastic",
-    BSDF_DISNEY: "disney",
-}
-
 # Emitter kinds
 EM_AREA = 0
 EM_CONSTANT = 1
 EM_POINT = 2
 EM_ENVMAP = 3
-
-EMITTER_NAMES = {EM_AREA: "area", EM_CONSTANT: "constant", EM_POINT: "point",
-                 EM_ENVMAP: "envmap"}
 
 # ---- packed face-table column indices (Geometry.face_tab rows) ----
 FC_NG = 0          # 0-2  geometric normal

@@ -32,6 +32,7 @@ from misaki_tpu_torch.render import textures as tex
 from misaki_tpu_torch.scene import procedural
 from misaki_tpu_torch.scene.compiler import load_and_compile
 from misaki_tpu_torch.scenes.envlit import assets
+from misaki_tpu_torch.scenes.materials import assets as materials_assets
 from misaki_tpu_torch.tools import profile_cluster_frame, profile_texel_fetch_levers
 from misaki_tpu_torch.tools.tie_case import merge_clusters
 
@@ -349,6 +350,18 @@ def test_envlit_cuda_render_matches_cpu(tmp_path):
     scene = load_and_compile(str(xml), spp=4, width=32, height=24, device="cpu")
     a = driver.render(scene.to("cuda"), seed=3, depth_cap=3)["rgb"].cpu().numpy()
     b = driver.render(scene, seed=3, depth_cap=3)["rgb"].numpy()
+    assert abs(a.mean() - b.mean()) <= 5e-3 * abs(b.mean())
+    assert np.abs(a - b).mean() <= 2e-2 * np.abs(b).mean()
+
+
+def test_gallery_cuda_render_matches_cpu(tmp_path):
+    """Every BSDF kind, the bitmap roughness and the point light: the
+    material gallery rendered on the card against the CPU."""
+    xml = materials_assets.write_assets(tmp_path, res=32)
+    scene = load_and_compile(str(xml), spp=2, width=32, height=24, device="cpu")
+    a = driver.render(scene.to("cuda"), seed=3)["rgb"].cpu().numpy()
+    b = driver.render(scene, seed=3)["rgb"].numpy()
+    assert np.isfinite(a).all() and a.min() >= 0.0
     assert abs(a.mean() - b.mean()) <= 5e-3 * abs(b.mean())
     assert np.abs(a - b).mean() <= 2e-2 * np.abs(b).mean()
 

@@ -13,8 +13,11 @@ import torch
 from torch_helpers import CBOX_XML, FURNACE_XML, REPO, n
 
 from misaki_tpu.accel import cluster as jcluster
+from misaki_tpu.scene.compiler import compile_scene as jcompile
 from misaki_tpu.scene.compiler import load_and_compile as jload
+from misaki_tpu.scene.loader import load_string as jload_string
 from misaki_tpu_torch.accel import cluster as pcluster
+from misaki_tpu_torch.render.driver import render
 from misaki_tpu_torch.scene import from_compiled, procedural
 from misaki_tpu_torch.scene.compiler import compile_scene
 from misaki_tpu_torch.scene.compiler import load_and_compile as pload
@@ -114,10 +117,30 @@ def test_every_scene_gets_clusters():
 
 
 @pytest.mark.parametrize("plugin,xml", [
-    ("roughconductor", '<bsdf type="roughconductor"/>'),
-    ("point", None),
+    ("homogeneous", '<medium type="homogeneous" name="interior"/>'),
+    ("volpath", None),
 ])
 def test_unported_plugins_raise(plugin, xml):
+    """What the port does not carry yet raises with the plugin's name: a
+    medium when the scene compiles, an integrator other than `path` when it
+    renders."""
+    text = open(FURNACE_XML).read()
+    if plugin == "volpath":
+        text = text.replace('<integrator type="path"/>', '<integrator type="volpath"/>')
+        scene = compile_scene(load_string(text), spp=1, width=4, height=4, device="cpu")
+        with pytest.raises(NotImplementedError, match=plugin):
+            render(scene, seed=0)
+    else:
+        text = text.replace('<float name="radius" value="1.0"/>',
+                            '<float name="radius" value="1.0"/>' + xml)
+        with pytest.raises(NotImplementedError, match=plugin):
+            compile_scene(load_string(text), device="cpu")
+
+
+@pytest.mark.parametrize("plugin", ["roughconductor", "point"])
+def test_ported_plugins_compile(plugin):
+    """A rough conductor and a point light, which raised before the port
+    carried every BSDF and the point emitter, compile like misaki_tpu's."""
     text = open(FURNACE_XML).read()
     if plugin == "point":
         text = text.replace('<emitter type="constant">',
@@ -125,9 +148,15 @@ def test_unported_plugins_raise(plugin, xml):
                             '</emitter>\n    <emitter type="constant">')
     else:
         text = text.replace('<bsdf type="diffuse">\n            <spectrum name="reflectance" '
-                            'value="1.0"/>\n        </bsdf>', xml)
-    with pytest.raises(NotImplementedError, match=plugin):
-        compile_scene(load_string(text), device="cpu")
+                            'value="1.0"/>\n        </bsdf>', '<bsdf type="roughconductor"/>')
+    assert plugin in text
+    ps = compile_scene(load_string(text), device="cpu")
+    js = jcompile(jload_string(text))
+    assert ps.bsdf_kinds == tuple(js.bsdf_kinds)
+    assert ps.emitter_kinds == tuple(js.emitter_kinds)
+    np.testing.assert_array_equal(n(ps.emitters.position), np.asarray(js.emitters.position))
+    np.testing.assert_allclose(n(ps.materials.params), np.asarray(js.materials.params),
+                               rtol=1e-6)
 
 
 def test_load_and_compile_defaults_to_the_card(pair):
