@@ -47,7 +47,31 @@ Phases, one line each; any failure exits non-zero:
      128 spp (max_depth 5 and 7): a small warm-up render, then one timed
      frame each with the cluster launches checked; the same image checks;
      device busy share and top kernels from a profiled 16 spp frame at
-     1280x720; a small render of each on cuda against the CPU.
+     1280x720; a small render of each on cuda against the CPU;
+ 11. the bunny intersection-rate workload (scenes/bunny_debug.xml: the
+     `debug` integrator, 768x768, 1 spp, one chunk) through render() on
+     cuda, as in phase 4 (launches 1 / 0 / 0 a frame); image checks (the
+     mean |n| over the bunny's pixels in (0, 1], the border black, the
+     bunny's share of the pixels); a 96x96 render on cuda against the CPU;
+ 12. cbox under `direct` (scenes/cbox/direct.xml: 2 emitter and 2 BSDF
+     samples, 256x256, 64 spp) as in phase 4 (launches 12 / 8 / 0); the
+     cbox image checks; a 64x64, 8 spp render on cuda against the CPU;
+ 13. envlit under `aov` (envlit/aov.xml: depth, position, uv and both
+     normals beside a nested path of max_depth 5) at 256x256, 64 spp, as in
+     phase 4 (launches 24 / 16 / 52); checks on pixels well inside one
+     class: depth > 0 on the floor and the bunny and 0 on the sky, uv in
+     [0, 1] on the floor, shading normals of unit length (within 1e-4 on
+     the flat floor, 2e-2 on the curved bunny, whose normals the filter
+     averages over a pixel); a 64x64, 4 spp
+     render on cuda against the CPU, every AOV and the RGB;
+ 14. checkpoint on the card: cbox at 128x128, 16 spp in 16 chunks of 2^14
+     lanes, snapshots every 4 chunks, stopped by a progress callback that
+     raises after chunk 9, then resumed: the film equal to the bit to an
+     uninterrupted render's; the CLI on cuda writes envlit/aov.xml's EXR and
+     one EXR per AOV, read back with tests/test_torch_driver.py's reader;
+then the port's bench (python -m misaki_tpu_torch.tools.bench), its lines
+printed with a "[bench]" prefix. Timed and profiled frames pass the bench's
+`quiet` progress callback, so the driver's progress log stays out of them.
 Every kernel time is a device time taken one way
 (`profile_cluster_frame.device_ms`: CUDA events around launches enqueued
 while a device sleep holds the stream, so the host's launch cost is not in
@@ -64,6 +88,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 OUT_DIR = ROOT / "chiprun_out"
 CBOX_XML = ROOT / "misaki_tpu_torch" / "scenes" / "cbox" / "scene.xml"
+SCENES = ROOT / "misaki_tpu_torch" / "scenes"
 SCENE_BUILD = ROOT / "build" / "scenes" / "envlit"
 GALLERY_BUILD = ROOT / "build" / "scenes" / "materials"
 TESTBALL_DIR = ROOT / "misaki_tpu_torch" / "scenes" / "testball"
@@ -226,54 +251,261 @@ def timed_frames(scene, label, want_per_chunk, n_frames=N_FRAMES, warmup=None):
     """A warm-up frame (of `warmup`, else of `scene`), then `n_frames` timed
     frames of `scene` on cuda with every launch count set to 0 just before
     them and read just after; fails unless the counts are n_frames * chunks
-    * `want_per_chunk`. Rays per frame count `bench.py:65-68`'s way: W * H *
-    spp * (1 + 2 * bounce iterations). Returns (last frame's output, seconds
-    per frame, rays/s, launches)."""
+    * `want_per_chunk`. Rays per frame count `bench.py:65-68`'s way, W * H *
+    spp * rays per sample (tools/bench.py `rays_per_sample`: 1 + 2 * bounce
+    iterations on a path frame). Returns (last frame's output, seconds per
+    frame, rays/s, launches)."""
     import torch
 
     from misaki_tpu_torch.render.driver import render
     from misaki_tpu_torch.render.integrator import n_bounce_iters
+    from misaki_tpu_torch.tools.bench import quiet, rays_per_sample
 
     n_samples = scene.film_width * scene.film_height * scene.spp
     n_chunks = -(-n_samples // BENCH_CHUNK)
     n_iters = n_bounce_iters(scene, BENCH_DEPTH)
+    per_sample = rays_per_sample(scene, BENCH_DEPTH)
     render(scene if warmup is None else warmup, seed=0, chunk_size=BENCH_CHUNK,
-           depth_cap=BENCH_DEPTH)
+           depth_cap=BENCH_DEPTH, progress=quiet)
     torch.cuda.synchronize()
     reset_counts()
     t0 = time.perf_counter()
     for i in range(n_frames):
-        out = render(scene, seed=i + 1, chunk_size=BENCH_CHUNK, depth_cap=BENCH_DEPTH)
+        out = render(scene, seed=i + 1, chunk_size=BENCH_CHUNK, depth_cap=BENCH_DEPTH,
+                     progress=quiet)
     torch.cuda.synchronize()
     dt = (time.perf_counter() - t0) / n_frames
     launches = read_counts()
     want = {k: n_frames * n_chunks * v for k, v in want_per_chunk.items()}
-    rays_per_s = n_samples * (1 + 2 * n_iters) / dt
-    phase(label, f"{scene.film_width}x{scene.film_height} {scene.spp} spp, {n_iters} bounce "
-                 f"iterations: {dt:.4f} s/frame, {rays_per_s:.6e} rays/s ({n_frames} frames, "
-                 f"{n_chunks} chunks of {BENCH_CHUNK}); launches {launches} expected {want}")
+    rays_per_s = n_samples * per_sample / dt
+    phase(label, f"{scene.film_width}x{scene.film_height} {scene.spp} spp, {scene.integrator}, "
+                 f"{n_iters} bounce iterations, {per_sample} rays per sample: {dt:.4f} s/frame, "
+                 f"{rays_per_s:.6e} rays/s ({n_frames} frames, {n_chunks} chunks of "
+                 f"{BENCH_CHUNK}); launches {launches} expected {want}")
     if launches != want:
         fail(f"phase {label}: kernel launch counts {launches} != expected {want}")
     return out, dt, rays_per_s, launches
 
 
 def cuda_vs_cpu(scene_cpu, label):
-    """The same small render on cuda and on the CPU: relative difference of
-    the image means < 0.5%, relative L1 < 2% (the splat adds in atomic order
-    on the card)."""
+    """The same small render on cuda and on the CPU through the bench's
+    `cuda_cpu_parity`: relative difference of the image means < 0.5%,
+    relative L1 < 2%, on the RGB and on every AOV. Returns the largest of
+    each over the images."""
+    from misaki_tpu_torch.tools.bench import cuda_cpu_parity
+
+    res = cuda_cpu_parity(scene_cpu)
+    ok = res.pop("ok")
+    for name, r in res.items():
+        phase(label, f"{scene_cpu.film_width}x{scene_cpu.film_height} {scene_cpu.spp} spp "
+                     f"cuda vs cpu, {name}: mean rel diff {r['mean_rel']:.3e}, relative L1 "
+                     f"{r['l1_rel']:.3e}")
+    if not ok:
+        fail(f"phase {label}: cuda render disagrees with the cpu render {res}")
+    return (max(r["mean_rel"] for r in res.values()), max(r["l1_rel"] for r in res.values()))
+
+
+def interior(mask, r=3):
+    """Pixels whose (2r+1)^2 neighbourhood lies wholly in `mask` (H, W), a
+    class read from each pixel's first sample: the reconstruction filter (a
+    gaussian of radius 2 pixels) mixes no other class into them."""
+    import torch.nn.functional as F
+
+    return -F.max_pool2d(-mask.float()[None, None], 2 * r + 1, 1, r)[0, 0] > 0.5
+
+
+def phase_debug(profiles):
+    """Phase 11: the bunny intersection-rate workload. Returns its numbers."""
     import numpy as np
 
-    from misaki_tpu_torch.render.driver import render
+    from misaki_tpu_torch.scene.compiler import load_and_compile
 
-    a = render(scene_cpu.to("cuda"), seed=7, depth_cap=4)["rgb"].cpu().numpy()
-    b = render(scene_cpu, seed=7, depth_cap=4)["rgb"].numpy()
-    mean_rel = float(abs(a.mean() - b.mean()) / max(abs(b.mean()), 1e-12))
-    l1_rel = float(np.abs(a - b).mean() / max(np.abs(b).mean(), 1e-12))
-    phase(label, f"{scene_cpu.film_width}x{scene_cpu.film_height} {scene_cpu.spp} spp cuda vs "
-                 f"cpu: mean rel diff {mean_rel:.3e}, relative L1 {l1_rel:.3e}")
-    if not (mean_rel < 5e-3 and l1_rel < 2e-2):
-        fail(f"phase {label}: cuda render disagrees with the cpu render")
-    return mean_rel, l1_rel
+    scene = load_and_compile(str(SCENES / "bunny_debug.xml"))
+    out, dt, rays, launches = timed_frames(scene, "11", {"closest": 1, "anyhit": 0, "fetch": 0})
+    rgb = out["rgb"].cpu().numpy()
+    np.save(OUT_DIR / "bunny_debug_rgb.npy", rgb)
+    hit = (rgb > 0).any(axis=-1)
+    border = np.concatenate([rgb[:4].ravel(), rgb[-4:].ravel(), rgb[:, :4].ravel(),
+                             rgb[:, -4:].ravel()])
+    mean_n = float(rgb[hit].mean()) if hit.any() else 0.0
+    checks = {"finite": bool(np.isfinite(rgb).all()), "mean_n_in_0_1": 0.0 < mean_n <= 1.0,
+              "max_n_le_1": bool(rgb.max() <= 1.0 + 1e-5),
+              "border_black": bool(np.abs(border).max() == 0.0),
+              "bunny_share": bool(0.05 < hit.mean() < 0.95)}
+    phase("11", f"bunny pixels {hit.mean():.4f}, mean |n| there {mean_n:.4f}; checks {checks}")
+    if not all(checks.values()):
+        fail(f"phase 11: image checks failed {checks}")
+    profiles["bunny_debug"] = try_profile(scene, dt, "11", "profile_bunny_debug.txt")
+    small = load_and_compile(str(SCENES / "bunny_debug.xml"), width=96, height=96, device="cpu")
+    return {"frame_s": dt, "rays_per_s": rays, "launches": launches,
+            "cuda_vs_cpu": cuda_vs_cpu(small, "11")}
+
+
+def phase_direct(profiles):
+    """Phase 12: cbox under `direct`. Returns its numbers."""
+    import numpy as np
+
+    from misaki_tpu_torch.scene.compiler import load_and_compile
+
+    xml = SCENES / "cbox" / "direct.xml"
+    scene = load_and_compile(str(xml))
+    n_lum, n_bsdf = scene.direct_light_samples, scene.direct_bsdf_samples
+    out, dt, rays, launches = timed_frames(
+        scene, "12", {"closest": 1 + n_bsdf, "anyhit": n_lum, "fetch": 0})
+    rgb = out["rgb"].cpu().numpy()
+    np.save(OUT_DIR / "cbox_direct_rgb.npy", rgb)
+    third = scene.film_width // 3
+    left, right = rgb[:, :third], rgb[:, -third:]
+    checks = {"finite": bool(np.isfinite(rgb).all()),
+              "red_left": bool(left[..., 0].mean() > left[..., 1].mean()),
+              "green_right": bool(right[..., 1].mean() > right[..., 0].mean()),
+              "lit": bool(rgb.mean() > 0.01)}
+    phase("12", f"{n_lum} emitter and {n_bsdf} BSDF samples; image mean "
+                f"{rgb.mean(axis=(0, 1)).tolist()}; checks {checks}")
+    if not all(checks.values()):
+        fail(f"phase 12: image checks failed {checks}")
+    profiles["cbox_direct"] = try_profile(scene, dt, "12", "profile_cbox_direct.txt")
+    small = load_and_compile(str(xml), spp=8, width=64, height=64, device="cpu")
+    return {"frame_s": dt, "rays_per_s": rays, "launches": launches,
+            "cuda_vs_cpu": cuda_vs_cpu(small, "12")}
+
+
+def phase_aov(envlit_xml, profiles):
+    """Phase 13: envlit under `aov`. Returns its numbers."""
+    import numpy as np
+    import torch
+
+    from misaki_tpu_torch.render.integrator import n_bounce_iters
+    from misaki_tpu_torch.scene.compiler import load_and_compile
+
+    xml = envlit_xml.with_name("aov.xml")
+    scene = load_and_compile(str(xml))
+    n_iters = n_bounce_iters(scene, BENCH_DEPTH)
+    n_bitmaps = len(scene.bitmap_slots) * len(scene.bitmap_meta)
+    # the AOV cast, then the nested path's casts and texel fetches (phase 7);
+    # the AOV pass fetches no texel
+    out, dt, rays, launches = timed_frames(
+        scene, "13", {"closest": 2 + n_iters, "anyhit": n_iters,
+                      "fetch": 1 + n_iters * (n_bitmaps + 2)})
+    aovs = out["aovs"]
+    np.save(OUT_DIR / "envlit_aov_rgb.npy", out["rgb"].cpu().numpy())
+    for name, img in aovs.items():
+        np.save(OUT_DIR / f"envlit_aov_{name}.npy", img.cpu().numpy())
+    # pixel classes from each pixel's centre ray: the floor, the bunny, the sky
+    si = centre_hits(scene)
+    H, W = scene.film_height, scene.film_width
+    mat = torch.where(si["valid"], si["bsdf"], -1).reshape(H, W)
+    floor_id, bunny_id = (int(x) for x in scene.shape_bsdf.cpu())
+    floor, bunny, sky = (interior(mat == k) for k in (floor_id, bunny_id, -1))
+    depth, uv = aovs["depth"][..., 0], aovs["uv"]
+    n_len = torch.linalg.norm(aovs["sh_normal"], dim=-1)
+    hit = floor | bunny
+    checks = {
+        "classes_seen": bool(floor.sum() > 100 and bunny.sum() > 100 and sky.sum() > 100),
+        "depth_floor": bool((depth[floor] > 0).all()),
+        "depth_bunny": bool((depth[bunny] > 0).all()),
+        "depth_sky_0": bool((depth[sky] == 0).all()),
+        "uv_floor_in_0_1": bool(((uv[floor] >= 0) & (uv[floor] <= 1)).all()),
+        # the filter averages a pixel's samples: unit length on the flat
+        # floor, a little shorter where the bunny curves under the pixel
+        "sh_normal_unit_floor": bool((n_len[floor] - 1).abs().max() < 1e-4),
+        "sh_normal_unit_bunny": bool((n_len[bunny] - 1).abs().max() < 2e-2),
+        "finite": bool(all(torch.isfinite(a).all() for a in aovs.values())
+                       and torch.isfinite(out["rgb"]).all()),
+    }
+    phase("13", f"interior pixels floor {int(floor.sum())}, bunny {int(bunny.sum())}, sky "
+                f"{int(sky.sum())}; depth on the floor {depth[floor].min().item():.4f}.."
+                f"{depth[floor].max().item():.4f}, uv on the floor {uv[floor].min().item():.4f}.."
+                f"{uv[floor].max().item():.4f}, |sh_normal| where hit "
+                f"{n_len[hit].min().item():.6f}..{n_len[hit].max().item():.6f}; checks {checks}")
+    if not all(checks.values()):
+        fail(f"phase 13: AOV checks failed {checks}")
+    profiles["envlit_aov"] = try_profile(scene, dt, "13", "profile_envlit_aov.txt")
+    small = load_and_compile(str(xml), spp=4, width=64, height=64, device="cpu")
+    return {"frame_s": dt, "rays_per_s": rays, "launches": launches,
+            "cuda_vs_cpu": cuda_vs_cpu(small, "13")}
+
+
+def phase_checkpoint(envlit_xml):
+    """Phase 14: a render stopped and resumed on the card equals the
+    uninterrupted one to the bit; the CLI's EXR files read back."""
+    import numpy as np
+    import torch
+
+    from misaki_tpu_torch.render.driver import render
+    from misaki_tpu_torch.scene.compiler import load_and_compile
+
+    scene = load_and_compile(str(CBOX_XML), spp=16, width=128, height=128).replace(
+        max_depth=BENCH_DEPTH + 1)
+    chunk, ck = 1 << 14, OUT_DIR / "checkpoint.npz"
+    ck.unlink(missing_ok=True)
+    ref = render(scene, seed=5, chunk_size=chunk, depth_cap=BENCH_DEPTH)
+
+    class Stop(RuntimeError):
+        pass
+
+    def stop_after_9(done, total):
+        if done == 9:
+            raise Stop()
+
+    try:
+        render(scene, seed=5, chunk_size=chunk, depth_cap=BENCH_DEPTH, checkpoint_path=str(ck),
+               checkpoint_every=4, progress=stop_after_9)
+        fail("phase 14: the progress callback did not stop the render")
+    except Stop:
+        pass
+    snapshot_chunk = int(np.load(ck)["next_chunk"]) if ck.exists() else None
+    seen = []
+    out = render(scene, seed=5, chunk_size=chunk, depth_cap=BENCH_DEPTH, checkpoint_path=str(ck),
+                 checkpoint_every=4, progress=lambda done, total: seen.append((done, total)))
+    equal = bool(torch.equal(out["film"], ref["film"]))
+    checks = {"snapshot_at_8": snapshot_chunk == 8, "resumed_9_to_16": [d for d, _ in seen]
+              == list(range(9, 17)), "film_bit_equal": equal, "snapshot_cleared": not ck.exists()}
+    phase("14", f"cbox 128x128 16 spp, {seen[-1][1] if seen else '?'} chunks of {chunk}: "
+                f"stopped after chunk 9, snapshot at chunk {snapshot_chunk}, resumed through "
+                f"chunk {seen[-1][0] if seen else '?'}; checks {checks}")
+    if not all(checks.values()):
+        fail(f"phase 14: checkpoint/resume checks failed {checks}")
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    from test_torch_driver import read_exr
+
+    dest = OUT_DIR / "envlit_aov_cli.exr"
+    res = subprocess.run([sys.executable, "-m", "misaki_tpu_torch.cli", str(envlit_xml.with_name(
+        "aov.xml")), "-o", str(dest), "--spp", "4", "--width", "64", "--height", "48"],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    if res.returncode != 0:
+        fail(f"phase 14: the CLI failed: {res.stderr[-2000:]}")
+    files = {dest.name: read_exr(dest)}
+    for name in ("depth", "position", "uv", "geo_normal", "sh_normal"):
+        path = dest.with_name(f"{dest.stem}_{name}.exr")
+        files[path.name] = read_exr(path)
+    shapes = {k: (sorted(v), next(iter(v.values())).shape) for k, v in files.items()}
+    ok = (sorted(files[dest.name]) == ["A", "B", "G", "R"]
+          and all(shape == (48, 64) for _, shape in shapes.values())
+          and all(np.isfinite(p).all() for v in files.values() for p in v.values()))
+    phase("14", f"CLI on cuda wrote {len(files)} EXR files, read back: {shapes}")
+    if not ok:
+        fail("phase 14: the CLI's EXR files are not what was rendered")
+    return {"snapshot_chunk": snapshot_chunk, "film_bit_equal": equal, "exr_files": shapes}
+
+
+def run_bench():
+    """The port's bench in its own process; its lines printed with a prefix.
+    Fails unless it exits 0 with its headline on its first line."""
+    res = subprocess.run([sys.executable, "-m", "misaki_tpu_torch.tools.bench"], cwd=ROOT,
+                         capture_output=True, text=True, timeout=900)
+    lines = res.stdout.strip().splitlines()
+    for line in lines:
+        print(f"[bench] {line}", flush=True)
+    try:
+        head = json.loads(lines[0])
+        extra = json.loads(lines[1])
+    except (IndexError, ValueError):
+        fail(f"bench: no headline and extras (rc {res.returncode}): {res.stderr[-2000:]}")
+    if res.returncode != 0 or head.get("metric") != "cbox_4bounce_rays_per_s":
+        fail(f"bench: rc {res.returncode}, first line {lines[0]}")
+    return {"headline": head, **extra}
 
 
 def centre_hits(scene):
@@ -386,6 +618,7 @@ def main():
     from misaki_tpu_torch.scenes.envlit import assets
     from misaki_tpu_torch.scenes.materials import assets as materials_assets
     from misaki_tpu_torch.tools import profile_cluster_frame
+    from misaki_tpu_torch.tools.bench import quiet
     from misaki_tpu_torch.tools.tie_case import merge_clusters
     from misaki_tpu_torch.utils import cuda_build
 
@@ -572,7 +805,8 @@ def main():
         # launches costs minutes), against the same frame unprofiled
         part = tb.replace(spp=16)
         t0 = time.perf_counter()
-        driver.render(part, seed=12, chunk_size=BENCH_CHUNK, depth_cap=BENCH_DEPTH)
+        driver.render(part, seed=12, chunk_size=BENCH_CHUNK, depth_cap=BENCH_DEPTH,
+                      progress=quiet)
         torch.cuda.synchronize()
         part_s = time.perf_counter() - t0
         prof_tb = try_profile(part, part_s, "10", f"profile_{fig}.txt")
@@ -581,11 +815,20 @@ def main():
                       "launches": launches_tb, "spp16_frame_s": part_s, "spp16_profile": prof_tb,
                       "cuda_vs_cpu": cuda_vs_cpu(small, "10")}
 
+    # ---- phases 11-14: the debug, direct and aov paths, checkpoint and CLI
+    new_profiles = {}
+    new_paths = {"bunny_debug": phase_debug(new_profiles),
+                 "cbox_direct": phase_direct(new_profiles),
+                 "envlit_aov": phase_aov(envlit_xml, new_profiles)}
+    checkpoint = phase_checkpoint(envlit_xml)
+    bench = run_bench()
+
     main_case = report["cbox_camera"]
     fa, fb, fn = (fetch_report[c] for c in ("env_random", "bitmap_camera_mips", "env_nee"))
     main_runs = {"cbox": (launches_cbox, N_FRAMES), "envlit": (launches_env, N_FRAMES),
                  "gallery": (launches_gal, N_FRAMES),
-                 **{fig: (b["launches"], 1) for fig, b in balls.items()}}
+                 **{fig: (b["launches"], 1) for fig, b in balls.items()},
+                 **{path: (r["launches"], N_FRAMES) for path, r in new_paths.items()}}
 
     def launches(key):
         return sum(counts[key] for counts, _ in main_runs.values())
@@ -649,7 +892,9 @@ def main():
                     "cuda_vs_cpu": [env_mean_rel, env_l1_rel]},
          "gallery": {"frame_s": dt_gal, "rays_per_s": rays_gal, "launches": launches_gal,
                      "profile": profile_gal, "cuda_vs_cpu": gal_cuda_vs_cpu},
-         "testballs": balls}, indent=1))
+         "testballs": balls,
+         **{path: {**r, "profile": new_profiles[path]} for path, r in new_paths.items()},
+         "checkpoint": checkpoint, "bench": bench}, indent=1))
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name,
                                              "count": torch.cuda.device_count()}}), flush=True)
@@ -665,10 +910,11 @@ def try_profile(scene, frame_s, label, table_name):
     from torch.profiler import ProfilerActivity, profile
 
     from misaki_tpu_torch.render.driver import render
+    from misaki_tpu_torch.tools.bench import quiet
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        render(scene, seed=11, chunk_size=BENCH_CHUNK, depth_cap=BENCH_DEPTH)
+        render(scene, seed=11, chunk_size=BENCH_CHUNK, depth_cap=BENCH_DEPTH, progress=quiet)
         torch.cuda.synchronize()
     events = prof.key_averages()
     (OUT_DIR / table_name).write_text(events.table(sort_by="self_device_time_total",

@@ -342,7 +342,7 @@ def _pdf_roughdielectric(p, wi, wo):
         eta_r * eta_r * torch.abs(vec.dot(wo, mv))
         / torch.clamp(m.sqr(vec.dot(wi, mv) + eta_r * vec.dot(wo, mv)), min=_TINY),
     )
-    s = 1.2 - 0.2 * torch.sqrt(torch.abs(cti))  # scaled distribution (rd.cpp:177-183)
+    s = 1.2 - 0.2 * m.sqrt(torch.abs(cti))  # scaled distribution (rd.cpp:177-183)
     prob = microfacet.pdf_ggx(mv, p["alpha_u"] * s, p["alpha_v"] * s)
     F = fresnel.fresnel(vec.dot(wi, mv), p["eta"])[0]
     prob = prob * torch.where(reflect, F, 1.0 - F)
@@ -353,7 +353,7 @@ def _sample_roughdielectric(p, wi, u1, u2):
     cti = frame.cos_theta(wi)
     # the reference samples the scaled-alpha distribution
     # (roughdielectric.cpp:69-76); the polar sampler ignores wi
-    s = 1.2 - 0.2 * torch.sqrt(torch.abs(cti))
+    s = 1.2 - 0.2 * m.sqrt(torch.abs(cti))
     mv, pdf = microfacet.sample_ggx(u2, p["alpha_u"] * s, p["alpha_v"] * s)
     F, cos_theta_t, eta_it, eta_ti = fresnel.fresnel(vec.dot(wi, mv), p["eta"])
     selected_r = u1 <= F

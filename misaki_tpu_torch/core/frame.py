@@ -7,6 +7,7 @@ Local directions have n == +z.
 
 import torch
 
+from misaki_tpu_torch.core import math as m
 from misaki_tpu_torch.core import vec
 
 
@@ -56,7 +57,7 @@ def sin_theta_2(v):
 
 
 def sin_theta(v):
-    return torch.sqrt(sin_theta_2(v))
+    return m.sqrt(sin_theta_2(v))
 
 
 def tan_theta(v):

@@ -65,8 +65,8 @@ def fresnel_conductor(cos_theta_i, eta, k):
     sin4 = sin2 * sin2
 
     temp_1 = eta * eta - k * k - sin2
-    a_2_pb_2 = torch.sqrt(torch.clamp(temp_1 * temp_1 + 4.0 * k * k * eta * eta, min=1e-20))
-    a = torch.sqrt(torch.clamp(0.5 * (a_2_pb_2 + temp_1), min=1e-20))
+    a_2_pb_2 = m.sqrt(torch.clamp(temp_1 * temp_1 + 4.0 * k * k * eta * eta, min=1e-20))
+    a = m.sqrt(torch.clamp(0.5 * (a_2_pb_2 + temp_1), min=1e-20))
 
     term_1 = a_2_pb_2 + cos2
     term_2 = 2.0 * c * a

@@ -48,7 +48,7 @@ def sample_ggx(sample, alpha_u, alpha_v):
     s = sin_phi_m / alpha_v
     alpha_sqr = 1.0 / (c * c + s * s)
     tan_theta_m_sqr = alpha_sqr * s0 / torch.clamp(1.0 - s0, min=1e-20)
-    cos_theta_m = 1.0 / torch.sqrt(1.0 + tan_theta_m_sqr)
+    cos_theta_m = 1.0 / m.sqrt(1.0 + tan_theta_m_sqr)
     tmp = 1.0 + tan_theta_m_sqr / alpha_sqr
     pdf = m.InvPi / (alpha_u * alpha_v * cos_theta_m * cos_theta_m * cos_theta_m * tmp * tmp)
     pdf = torch.where(pdf < 1e-20, 0.0, pdf)
@@ -63,8 +63,8 @@ def smith_g1(v, mv, alpha_u, alpha_v, distr_type=GGX):
     xy_alpha_2 = m.sqr(alpha_u * vx) + m.sqr(alpha_v * vy)
     tan_theta_alpha_2 = xy_alpha_2 / torch.clamp(m.sqr(vz), min=1e-20)
 
-    g_ggx = 2.0 / (1.0 + torch.sqrt(1.0 + tan_theta_alpha_2))
-    a = 1.0 / torch.sqrt(torch.clamp(tan_theta_alpha_2, min=1e-20))
+    g_ggx = 2.0 / (1.0 + m.sqrt(1.0 + tan_theta_alpha_2))
+    a = 1.0 / m.sqrt(torch.clamp(tan_theta_alpha_2, min=1e-20))
     a_sqr = a * a
     g_b = torch.where(a >= 1.6, 1.0,
                       (3.535 * a + 2.181 * a_sqr) / (1.0 + 2.276 * a + 2.577 * a_sqr))

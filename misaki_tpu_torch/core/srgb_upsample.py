@@ -12,6 +12,7 @@ in-render evaluation is the same closed form, on tensors
 import numpy as np
 import torch
 
+from misaki_tpu_torch.core import math as m
 from misaki_tpu_torch.core.cie_data import (
     CIE1931_X,
     CIE1931_Y,
@@ -118,20 +119,35 @@ def srgb_model_eval(coeff, wavelengths):
     """
     c0, c1, c2 = coeff
     v = (c0[None, :] * wavelengths + c1[None, :]) * wavelengths + c2[None, :]
-    rsqrt = 1.0 / torch.sqrt(v * v + 1.0)
+    rsqrt = 1.0 / m.sqrt(v * v + 1.0)
     return torch.clamp(0.5 * v * rsqrt + 0.5, min=0.0)
 
 
+# 16 equally spaced wavelengths on 360..830 nm, in float32, as
+# jnp.linspace(360, 830, 16) rounds them (misaki_tpu's srgb_model_mean);
+# torch.linspace rounds 4 of them differently, so they are given as a table
+MEAN_WAVELENGTHS = (
+    360.0, 391.3333435058594, 422.66668701171875, 453.9999694824219,
+    485.3333435058594, 516.6666870117188, 548.0, 579.3333129882812,
+    610.6666870117188, 642.0, 673.3333740234375, 704.6666870117188,
+    736.0, 767.3333740234375, 798.6666870117188, 830.0,
+)
+
+
 def srgb_model_mean(coeff):
-    """Mean reflectance of the sigmoid model over 16 equally spaced
-    wavelengths on 360..830 nm, in float32. coeff: (..., 3) -> (...).
+    """Mean reflectance of the sigmoid model over the 16 wavelengths of
+    MEAN_WAVELENGTHS, in float32. coeff: (..., 3) -> (...).
 
     The reference's srgb_model_mean (srgb.h:21-36) spaces its wavelengths
     from WAVELENGTH_MIN to WAVELENGTH_MIN, so it evaluates at 360 nm only;
     this is the evident intent, as in misaki_tpu. Only roughplastic's lobe
-    sampling weight reads it."""
-    lam = torch.linspace(360.0, 830.0, 16, dtype=torch.float32)
+    sampling weight reads it. The 16 values are summed left to right, as
+    jnp.mean sums them on the CPU, so the result is jnp's to the bit."""
+    lam = torch.tensor(MEAN_WAVELENGTHS, dtype=torch.float32)
     c = torch.as_tensor(np.asarray(coeff), dtype=torch.float32)
     v = (c[..., 0:1] * lam + c[..., 1:2]) * lam + c[..., 2:3]
-    s = torch.clamp(0.5 * v / torch.sqrt(v * v + 1.0) + 0.5, min=0.0)
-    return torch.mean(s, dim=-1)
+    s = torch.clamp(0.5 * v / m.sqrt(v * v + 1.0) + 0.5, min=0.0)
+    total = s[..., 0]
+    for i in range(1, len(MEAN_WAVELENGTHS)):
+        total = total + s[..., i]
+    return total / float(len(MEAN_WAVELENGTHS))

@@ -10,6 +10,8 @@ Every per-lane vector is a tuple of component tensors, the same layout as
 
 import torch
 
+from misaki_tpu_torch.core import math as m
+
 
 def splat3(c, like):
     """Constant vector broadcast against a lane tensor."""
@@ -54,11 +56,11 @@ def norm2(a):
 
 
 def norm(a):
-    return torch.sqrt(norm2(a))
+    return m.sqrt(norm2(a))
 
 
 def normalize(a):
-    inv = 1.0 / torch.sqrt(torch.clamp(norm2(a), min=1e-30))
+    inv = 1.0 / m.sqrt(torch.clamp(norm2(a), min=1e-30))
     return scale(a, inv)
 
 

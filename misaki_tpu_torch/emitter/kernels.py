@@ -35,7 +35,7 @@ from misaki_tpu_torch.scene.types import (
 
 def _sigmoid(coeff, wavelengths):
     v = (coeff[0] * wavelengths + coeff[1]) * wavelengths + coeff[2]
-    return torch.clamp(0.5 * v / torch.sqrt(v * v + 1.0) + 0.5, min=0.0)
+    return torch.clamp(0.5 * v / m.sqrt(v * v + 1.0) + 0.5, min=0.0)
 
 
 def radiance(scene, ei, wavelengths, rad=None):
@@ -92,7 +92,7 @@ def _env_dir_to_uv(scene, d):
     u = u - torch.floor(u)
     y = torch.clamp(y, -1.0, 1.0)
     v = torch.acos(y) * m.InvPi
-    sin_t = torch.sqrt(torch.clamp(1.0 - y * y, min=0.0))
+    sin_t = m.sqrt(torch.clamp(1.0 - y * y, min=0.0))
     return u, v, sin_t
 
 
@@ -273,7 +273,7 @@ def _sample_area_emitter(scene, ei, ref_p, wavelengths, u2, rad=None):
 
     d = vec.sub(p, ref_p)
     dist2 = vec.norm2(d)
-    dist = torch.sqrt(dist2)
+    dist = m.sqrt(dist2)
     d = vec.scale(d, 1.0 / torch.clamp(dist, min=1e-20))
 
     pdf_area = 1.0 / torch.clamp(em.area[ei], min=1e-20)
@@ -304,7 +304,7 @@ def _sample_point_emitter(scene, ei, ref_p, wavelengths, u2, rad=None):
     radiance model holds the intensity."""
     d = vec.sub(vec.splat3(scene.emitters.position[ei], ref_p[0]), ref_p)
     dist2 = vec.norm2(d)
-    dist = torch.sqrt(dist2)
+    dist = m.sqrt(dist2)
     d = vec.scale(d, 1.0 / torch.clamp(dist, min=1e-20))
     rad_s = radiance(scene, ei, wavelengths, rad)
     return {"d": d, "dist": dist, "pdf": torch.ones_like(dist),

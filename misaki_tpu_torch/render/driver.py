@@ -1,5 +1,7 @@
 """Render driver: wavefront orchestration + film assembly
-(reference: SamplingIntegrator::render, integrator.cpp:31-126).
+(reference: SamplingIntegrator::render, integrator.cpp:31-126), with the
+`path`, `direct`, `debug` and `aov` integrators, checkpoint/resume and
+progress reports.
 
 The full (pixels x spp) sample set is split into fixed-size lane chunks; each
 chunk is rendered and splatted into the film, which stays on the device.
@@ -7,12 +9,17 @@ Determinism: lane index == pixel * spp + sample, and each lane's PCG32 stream
 is seeded by (lane, seed), so the image does not depend on the chunk size.
 """
 
+import os
+
+import numpy as np
 import torch
 
 from misaki_tpu_torch.core import rng, spectrum as spec
+from misaki_tpu_torch.render import aov
 from misaki_tpu_torch.render import camera as cam
 from misaki_tpu_torch.render import film as film_mod
 from misaki_tpu_torch.render import integrator as integ
+from misaki_tpu_torch.utils.logging import get_logger
 
 DEFAULT_CHUNK = 1 << 20
 _M32 = 0xFFFFFFFF
@@ -51,19 +58,24 @@ def primary_rays(scene, lane, seed):
 
 
 def _render_chunk(scene, film_flat, lane0, n_total, seed, chunk, depth_cap):
-    """Render `chunk` lanes (spp-aligned) starting at `lane0` into the film."""
-    if scene.integrator != "path":
-        raise NotImplementedError(f"integrator '{scene.integrator}'")
+    """Render `chunk` lanes (spp-aligned) starting at `lane0` into the film:
+    XYZ, or for `aov` its AOV columns and then XYZ (render/aov.py), then
+    alpha and the filter weight."""
     lane = lane0 + torch.arange(chunk, dtype=torch.int64, device=film_flat.device)
     in_range = lane < n_total
     ray, pos, state = primary_rays(scene, lane, seed)
-    L_spec, state = integ.sample_path(scene, ray, state, depth_cap)
-    L_spec = L_spec * ray["wav_weight"]
-    xyz = spec.spectrum_to_xyz(L_spec, ray["wavelengths"])
+    if scene.integrator == "aov":
+        cols, _ = aov.chunk_columns(scene, ray, state, depth_cap)
+    elif scene.integrator == "debug":
+        rgb, _ = integ.sample_debug(scene, ray, state)
+        cols = spec.srgb_to_xyz(rgb)
+    else:
+        L_spec, _ = integ.radiance(scene, ray, state, scene.integrator, depth_cap)
+        cols = spec.spectrum_to_xyz(L_spec * ray["wav_weight"], ray["wavelengths"])
 
     ones = torch.ones(chunk, device=film_flat.device)
-    # XYZAW channels (integrator.cpp:119-123: alpha=1, filter weight=1)
-    values = tuple(xyz) + (ones, ones)
+    # alpha=1, filter weight=1 (integrator.cpp:119-123)
+    values = tuple(cols) + (ones, ones)
     values = tuple(torch.where(in_range & torch.isfinite(c), c, 0.0) for c in values)
     return film_mod.splat_aligned(
         film_flat, lane0 // scene.spp, pos, values,
@@ -79,20 +91,99 @@ def pick_chunk(chunk_size, spp, n_total):
     return min(chunk, -(-n_total // spp) * spp)
 
 
+def _scene_fingerprint(scene, seed, depth_cap, chunk):
+    """Checkpoint compatibility: the static configuration (for `aov` its
+    outputs and nested integrator, which fix the film's channels), the
+    geometry's size, the seed and the resolved chunk. A chunk index means
+    another lane range under another chunk size, so a snapshot taken under
+    one would skip or add samples twice under another."""
+    aovs = f"|aovs={','.join(scene.aovs)}>{scene.aov_nested}" if scene.integrator == "aov" else ""
+    return (
+        f"{scene.film_width}x{scene.film_height}x{scene.spp}"
+        f"|{scene.integrator}{aovs}|{scene.max_depth}|{scene.n_faces}"
+        f"|{scene.n_emitters}|seed={seed}|cap={depth_cap}|chunk={chunk}"
+    )
+
+
+def save_checkpoint(path, film_flat, next_chunk, fingerprint):
+    """Atomic snapshot of the film (copied to the host) and the next chunk:
+    written beside `path`, then renamed over it. The per-lane PCG32 streams
+    need no state in the file: they derive from (lane, seed)."""
+    tmp = f"{path}.tmp.npz"
+    np.savez(tmp, film_flat=film_flat.cpu().numpy(), next_chunk=np.int64(next_chunk),
+             fingerprint=np.array(fingerprint))
+    os.replace(tmp, path)
+
+
+def load_checkpoint(path, fingerprint, device):
+    """-> (film_flat on `device`, next_chunk), or None where there is no
+    snapshot or it belongs to another render (logged)."""
+    if not os.path.exists(path):
+        return None
+    with np.load(path, allow_pickle=False) as data:
+        if str(data["fingerprint"]) != fingerprint:
+            get_logger().warning(
+                "checkpoint %s does not match this render (have %r, want %r): "
+                "starting fresh", path, str(data["fingerprint"]), fingerprint)
+            return None
+        return torch.from_numpy(data["film_flat"]).to(device), int(data["next_chunk"])
+
+
+def log_progress(done, total):
+    """The default progress reporter: a log line about every tenth of the
+    chunks."""
+    if done % max(1, total // 10) == 0 or done == total:
+        get_logger().info("render progress: %d/%d chunks (%.0f%%)", done, total,
+                          100.0 * done / total)
+
+
 def render(scene, seed=0, chunk_size=DEFAULT_CHUNK,
-           depth_cap=integ.DEFAULT_MAX_DEPTH_CAP):
+           depth_cap=integ.DEFAULT_MAX_DEPTH_CAP, checkpoint_path=None,
+           checkpoint_every=8, progress=None):
     """Render the scene on the scene's device. Returns {"film" (H, W, 5),
-    "rgb" (H, W, 3), "alpha" (H, W)} tensors on that device."""
+    "rgb" (H, W, 3), "alpha" (H, W)} tensors on that device; the `aov`
+    integrator returns {"film": None, "rgb", "alpha", "aovs": {name:
+    (H, W, C)}} (render/aov.py).
+
+    checkpoint_path: where set, the film is saved every `checkpoint_every`
+    chunks and a compatible snapshot is resumed from; the finished image is
+    the uninterrupted one to the bit, since chunk order and the per-lane
+    streams are fixed. The snapshot is deleted when the render completes.
+    progress: callable(done_chunks, total_chunks) after each chunk; by
+    default `log_progress` on a render of several chunks."""
     W, H, spp = scene.film_width, scene.film_height, scene.spp
     n_total = W * H * spp
     chunk = pick_chunk(chunk_size, spp, n_total)
     n_chunks = -(-n_total // chunk)
+    n_channels = aov.n_channels(scene) if scene.integrator == "aov" else 5
+    fingerprint = _scene_fingerprint(scene, seed, depth_cap, chunk)
+    start, film_flat = 0, None
+    if checkpoint_path is not None:
+        resumed = load_checkpoint(checkpoint_path, fingerprint, scene.device)
+        if resumed is not None:
+            film_flat, start = resumed
+            get_logger().info("resuming from %s at chunk %d/%d", checkpoint_path, start,
+                              n_chunks)
+    if progress is None and n_chunks > 1:
+        progress = log_progress
     with torch.inference_mode():
-        film_flat = film_mod.new_film_flat(H, W, 5, scene.filter_type,
-                                           scene.filter_stddev, device=scene.device)
-        for c in range(n_chunks):
+        if film_flat is None:
+            film_flat = film_mod.new_film_flat(H, W, n_channels, scene.filter_type,
+                                               scene.filter_stddev, device=scene.device)
+        for c in range(start, n_chunks):
             _render_chunk(scene, film_flat, c * chunk, n_total, seed, chunk, depth_cap)
+            if progress is not None:
+                progress(c + 1, n_chunks)
+            if (checkpoint_path is not None and checkpoint_every > 0
+                    and (c + 1) % checkpoint_every == 0 and c + 1 < n_chunks):
+                save_checkpoint(checkpoint_path, film_flat, c + 1, fingerprint)
         film = film_mod.film_from_flat(film_flat, H, W, scene.filter_type,
                                        scene.filter_stddev)
-        rgb, alpha = film_mod.develop(film)
-    return {"film": film, "rgb": rgb, "alpha": alpha}
+        if scene.integrator == "aov":
+            out = {"film": None, **aov.develop(scene, film)}
+        else:
+            rgb, alpha = film_mod.develop(film)
+            out = {"film": film, "rgb": rgb, "alpha": alpha}
+    if checkpoint_path is not None and os.path.exists(checkpoint_path):
+        os.remove(checkpoint_path)  # completed: the snapshot is stale
+    return out

@@ -5,9 +5,13 @@ The film is a channel-major flat accumulator (C, H*W + 2*guard). The
 wavefront is pixel-major (lane = pixel * spp + s), so a chunk covers a
 contiguous pixel range: for each reconstruction-filter tap (ox, oy) the
 chunk's per-pixel sums land at the flat offset oy*W + ox, and the splat is an
-`index_add_` per tap. On CUDA the adds are atomic, so their order (and the
-last bits of a pixel shared by two taps) varies from run to run.
+`index_add_` per tap. The indices of one `index_add_` are distinct and the
+taps run one after another, so on CUDA too, where the adds are atomic, each
+film texel sums its terms in one fixed order: the film is the same to the
+bit from run to run, which a resumed render relies on.
 """
+
+import struct
 
 import numpy as np
 import torch
@@ -109,6 +113,57 @@ def to_srgb8(rgb):
     rgb = np.clip(np.asarray(rgb), 0.0, 1.0)
     srgb = np.where(rgb <= 0.0031308, 12.92 * rgb, 1.055 * rgb ** (1 / 2.4) - 0.055)
     return (srgb * 255.0 + 0.5).astype(np.uint8)
+
+
+EXR_MAGIC = 20000630   # little-endian: the bytes 76 2f 31 01 that open an OpenEXR file
+
+
+def _exr_attr(name, type_name, payload):
+    return (name.encode() + b"\0" + type_name.encode() + b"\0"
+            + struct.pack("<i", len(payload)) + payload)
+
+
+def write_exr(path, rgb, alpha=None):
+    """The developed image as a float32 OpenEXR file (the port's counterpart
+    of misaki_tpu's imageio write, film.py:137-146): one part, scan lines,
+    no compression, FLOAT channels R, G, B and, where given, A; a (H, W)
+    image is written as the one channel Y. Channels are stored sorted by
+    name, as the format asks. rgb: (H, W, 3) or (H, W); alpha: (H, W)."""
+    def host(x):
+        if isinstance(x, torch.Tensor):
+            x = x.detach().cpu().numpy()
+        return np.asarray(x, np.float32)
+
+    img = host(rgb)
+    planes = {"Y": img} if img.ndim == 2 else {"R": img[..., 0], "G": img[..., 1],
+                                               "B": img[..., 2]}
+    if alpha is not None:
+        planes["A"] = host(alpha)
+    names = sorted(planes)
+    H, W = img.shape[:2]
+    chlist = b"".join(n.encode() + b"\0" + struct.pack("<i4xii", 2, 1, 1) for n in names)
+    window = struct.pack("<iiii", 0, 0, W - 1, H - 1)
+    header = (struct.pack("<ii", EXR_MAGIC, 2)
+              + _exr_attr("channels", "chlist", chlist + b"\0")
+              + _exr_attr("compression", "compression", b"\0")
+              + _exr_attr("dataWindow", "box2i", window)
+              + _exr_attr("displayWindow", "box2i", window)
+              + _exr_attr("lineOrder", "lineOrder", b"\0")
+              + _exr_attr("pixelAspectRatio", "float", struct.pack("<f", 1.0))
+              + _exr_attr("screenWindowCenter", "v2f", struct.pack("<ff", 0.0, 0.0))
+              + _exr_attr("screenWindowWidth", "float", struct.pack("<f", 1.0))
+              + b"\0")
+    # per scan line: y, byte count, then each channel's W values in turn
+    rows = np.stack([planes[n] for n in names], axis=1).astype("<f4")   # (H, C, W)
+    line_bytes = rows.shape[1] * W * 4
+    first = len(header) + 8 * H
+    offsets = first + np.arange(H, dtype=np.int64) * (8 + line_bytes)
+    with open(path, "wb") as f:
+        f.write(header)
+        f.write(offsets.astype("<u8").tobytes())
+        for y in range(H):
+            f.write(struct.pack("<ii", y, line_bytes))
+            f.write(rows[y].tobytes())
 
 
 def write_png(path, rgb):

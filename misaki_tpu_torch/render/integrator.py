@@ -1,6 +1,7 @@
 """Wavefront path integrator with NEE + MIS + Russian roulette
 (reference: src/librender/integrators/path.cpp:19-141, driver loop
-integrator.cpp:82-126).
+integrator.cpp:82-126), and the `direct`, `aov` and `debug` integrators'
+per-wavefront estimates (direct.cpp, aov.cpp, debug.cpp).
 
 The reference's per-ray recursion becomes a lockstep Python loop over
 bounces on a lane-last SoA wavefront: every lane runs every stage under an
@@ -154,3 +155,142 @@ def sample_path(scene, ray, rng_state, depth_cap=DEFAULT_MAX_DEPTH_CAP):
         si = si_next
 
     return result, rng_state
+
+
+AOV_NAMES = ("depth", "position", "uv", "geo_normal", "sh_normal")
+
+
+def sample_aovs(scene, ray, rng_state):
+    """The `aov` integrator's channel set (integrators/aov.cpp:29-144):
+    depth, position, uv, geo_normal and sh_normal of the primary hit, 0 on a
+    miss. Draws nothing."""
+    hit = traverse.intersect(scene, ray["o"], ray["d"], ray["mint"], ray["maxt"])
+    si = inter.compute_interaction(scene, hit, ray["o"], ray["d"], ray["wavelengths"])
+    v = si["valid"]
+
+    def mask(x):
+        return tuple(torch.where(v, c, 0.0) for c in x)
+
+    return {
+        "depth": torch.where(v, si["t"], 0.0),
+        "position": mask(si["p"]),
+        "uv": mask(si["uv"]),
+        "geo_normal": mask(si["ng"]),
+        "sh_normal": mask(si["sh"]["n"]),
+    }, rng_state
+
+
+def sample_direct(scene, ray, rng_state):
+    """The `direct` integrator (integrators/direct.cpp:82-137): direct
+    illumination only, from max(light_samples, 1) emitter samples and
+    max(bsdf_samples, 1) BSDF samples combined by the sample-count-weighted
+    power-2 MIS heuristic (direct.cpp:104-110, 127-131).
+
+    Draw order: every emitter sample's 2D, then every BSDF sample's 1D and
+    2D, as misaki_tpu draws them. Each emitter sample makes one shadow cast
+    and each BSDF sample one closest-hit cast."""
+    L = ray["o"][0].shape[0]
+    dev = ray["o"][0].device
+    wavelengths = ray["wavelengths"]
+    n_lum = max(scene.direct_light_samples, 1)
+    n_bsdf = max(scene.direct_bsdf_samples, 1)
+    frac_lum = n_lum / (n_lum + n_bsdf)
+    frac_bsdf = n_bsdf / (n_lum + n_bsdf)
+    w_lum, w_bsdf = 1.0 / n_lum, 1.0 / n_bsdf
+
+    hit = traverse.intersect(scene, ray["o"], ray["d"], ray["mint"], ray["maxt"])
+    si = inter.compute_interaction(scene, hit, ray["o"], ray["d"], wavelengths,
+                                   ray_diff=_ray_diff(ray))
+    result = torch.zeros((4, L), device=dev)
+    rad = emitter.radiance_all(scene, wavelengths)
+
+    # directly visible emitters / environment (direct.cpp:89-94)
+    if not scene.hide_emitters:
+        if scene.has_environment:
+            env = emitter.eval_environment(scene, ray["d"], wavelengths, rad)
+            result = result + torch.where((~si["valid"])[None, :], env, 0.0)
+        em_val = emitter.eval_emitter(scene, si["emitter"], si["wi"], si["uv"],
+                                      wavelengths, rad)
+        result = result + torch.where(si["valid"][None, :], em_val, 0.0)
+
+    active = si["valid"]
+    p = bsdf.material_params(scene, si["bsdf"], si["uv"], wavelengths,
+                             duv=(si["duv_dx"], si["duv_dy"]))
+    sh_mint = m.RayEpsilon * (1.0 + vec.max_abs(si["p"]))
+
+    # -------- emitter sampling (direct.cpp:97-113), from Smooth lobes --------
+    for _ in range(n_lum):
+        u_nee, rng_state = rng.next_2d(rng_state)
+        ds = emitter.sample_emitter_direct(scene, si["p"], wavelengths, u_nee, rad)
+        possible = active & p["smooth"] & (ds["pdf"] > 0.0)
+        occluded = traverse.ray_test(
+            scene, si["p"], ds["d"],
+            torch.where(possible, sh_mint, 0.0),
+            torch.where(possible, ds["dist"] * (1.0 - m.ShadowEpsilon), -1.0),
+        )
+        wo_nee = frame.to_local(si["sh"], ds["d"])
+        f_nee = bsdf.eval_bsdf(p, si["wi"], wo_nee)
+        pdf_b = bsdf.pdf_bsdf(p, si["wi"], wo_nee)
+        mis = torch.where(ds["delta"], 1.0,
+                          m.mis_power2(ds["pdf"] * frac_lum, pdf_b * frac_bsdf)) * w_lum
+        take = possible & ~occluded
+        result = result + torch.where(take[None, :], ds["spec"] * f_nee * mis[None, :], 0.0)
+
+    # -------- BSDF sampling (direct.cpp:116-136) --------
+    for _ in range(n_bsdf):
+        u1, rng_state = rng.next_float32(rng_state)
+        u2, rng_state = rng.next_2d(rng_state)
+        bs = bsdf.sample_bsdf(p, si["wi"], u1, u2)
+        wo_world = frame.to_world(si["sh"], bs["wo"])
+        go = active & bs["valid"]
+        hit2 = traverse.intersect(
+            scene, si["p"], wo_world,
+            torch.where(go, inter.spawn_ray_mint(si["p"]), 0.0),
+            torch.where(go, torch.inf, -1.0),
+            coherent=False,
+        )
+        si2 = inter.compute_interaction(scene, hit2, si["p"], wo_world, wavelengths)
+        hit_area = si2["valid"] & (si2["emitter"] >= 0)
+        em_val = emitter.eval_emitter(scene, si2["emitter"], si2["wi"], si2["uv"],
+                                      wavelengths, rad)
+        value = torch.where(hit_area[None, :], em_val, 0.0)
+        em_pdf_area = emitter.pdf_emitter_direct(scene, si2["emitter"], wo_world,
+                                                 si2["t"], si2["ng"])
+        em_pdf = torch.where(hit_area, em_pdf_area, 0.0)
+        if scene.has_environment:
+            hit_env = ~si2["valid"]
+            env_val = emitter.eval_environment(scene, wo_world, wavelengths, rad)
+            value = torch.where(hit_env[None, :], env_val, value)
+            env_ids = torch.full((L,), scene.environment_idx, dtype=torch.int32, device=dev)
+            env_pdf = emitter.pdf_emitter_direct(scene, env_ids, wo_world, si2["t"],
+                                                 vec.neg(wo_world))
+            em_pdf = torch.where(hit_env, env_pdf, em_pdf)
+            hit_em = hit_area | hit_env
+        else:
+            hit_em = hit_area
+        em_pdf = torch.where(bs["delta"], 0.0, em_pdf)
+        mis = m.mis_power2(bs["pdf"] * frac_bsdf, em_pdf * frac_lum) * w_bsdf
+        result = result + torch.where((go & hit_em)[None, :],
+                                      bs["weight"] * value * mis[None, :], 0.0)
+
+    return result, rng_state
+
+
+def sample_debug(scene, ray, rng_state):
+    """The `debug` integrator (integrators/debug.cpp): |shading normal| as
+    RGB, 0 on a miss; one closest-hit cast, no draws. The workload of the
+    bunny intersection-rate benchmark."""
+    hit = traverse.intersect(scene, ray["o"], ray["d"], ray["mint"], ray["maxt"])
+    si = inter.compute_interaction(scene, hit, ray["o"], ray["d"], ray["wavelengths"])
+    rgb = tuple(torch.where(si["valid"], torch.abs(c), 0.0) for c in si["sh"]["n"])
+    return rgb, rng_state
+
+
+def radiance(scene, ray, rng_state, integrator, depth_cap=DEFAULT_MAX_DEPTH_CAP):
+    """The spectral radiance estimate of a radiance integrator, `path` or
+    `direct`; the others raise NotImplementedError with their name."""
+    if integrator == "path":
+        return sample_path(scene, ray, rng_state, depth_cap)
+    if integrator == "direct":
+        return sample_direct(scene, ray, rng_state)
+    raise NotImplementedError(f"integrator '{integrator}'")

@@ -12,6 +12,7 @@ from the scene's mip-chained bitmap table through the texel-fetch kernel
 
 import torch
 
+from misaki_tpu_torch.core import math as m
 from misaki_tpu_torch.render.texel_fetch import fetch4
 
 SLOT_CHECKER = 1.0
@@ -21,7 +22,7 @@ SLOT_BITMAP = 2.0
 def _sigmoid_spectrum(c0, c1, c2, wavelengths):
     """srgb.h:8-19 sigmoid model; c* are (L,), wavelengths (4, L)."""
     v = (c0[None, :] * wavelengths + c1[None, :]) * wavelengths + c2[None, :]
-    return torch.clamp(0.5 * v / torch.sqrt(v * v + 1.0) + 0.5, min=0.0)
+    return torch.clamp(0.5 * v / m.sqrt(v * v + 1.0) + 0.5, min=0.0)
 
 
 def _slot_uv(slot, uv):

@@ -65,5 +65,8 @@ def from_compiled(arrays, device="cuda"):
         bitmaps=np.ascontiguousarray(a(arrays.bitmaps, np.float32).T),
         bitmap_meta=tuple(arrays.bitmap_meta), bitmap_slots=tuple(arrays.bitmap_slots),
         bitmap_levels=bitmap_level_table(arrays.bitmap_meta),
+        aovs=tuple(arrays.aovs), aov_nested=arrays.aov_nested,
+        direct_light_samples=arrays.direct_light_samples,
+        direct_bsdf_samples=arrays.direct_bsdf_samples,
     )
     return scene.to(device)

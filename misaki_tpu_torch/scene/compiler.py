@@ -6,10 +6,10 @@ port renders: obj / rectangle / sphere shapes; every BSDF of misaki_tpu
 roughplastic, disney / principled, null, and the twosided and mask
 adapters) with plain, checkerboard or `bitmap` textures; `area`, `constant`,
 `envmap` and `point` emitters; the perspective sensor with an `hdrfilm` or
-`rgbfilm` and a box or gaussian filter; and the `path` integrator. On those
-scenes it produces the same arrays as the JAX compiler. Media raise
-NotImplementedError with their name; the other integrators compile and
-raise when rendered.
+`rgbfilm` and a box or gaussian filter; and the settings of the `path`,
+`direct`, `debug` and `aov` integrators. On those scenes it produces the
+same arrays as the JAX compiler. Media raise NotImplementedError with their
+name; the other integrators compile and raise when rendered.
 
 Two differences from the JAX compiler:
   * every scene gets the cluster accel (`accel/cluster.py`), built from the
@@ -731,6 +731,14 @@ def compile_scene(desc, spp=None, width=None, height=None, max_depth=None, devic
     integ = _find_child(desc, _INTEGRATOR_TYPES) or {
         "type": "path", "props": {}, "children": [],
     }
+    # the aov integrator nests a radiance integrator (aov.cpp renders its
+    # channels beside the AOVs); without one it is volpath where the scene
+    # has media and path otherwise, and this port raises on media above
+    aov_nested = "path"
+    if integ["type"] == "aov":
+        child = _find_child(integ, {"path", "volpath", "direct"})
+        if child is not None:
+            aov_nested = child["type"]
     sensor = _find_child(desc, {"perspective"})
     if sensor is None:
         raise ValueError("Scene needs a perspective sensor")
@@ -989,6 +997,10 @@ def compile_scene(desc, spp=None, width=None, height=None, max_depth=None, devic
         bitmap_meta=bitmap_meta,
         bitmap_levels=bitmap_level_table(bitmap_meta),
         bitmap_slots=materials.bitmap_slot_bases(),
+        aovs=tuple(ip["aovs"].split(",")) if ip.get("aovs") else (),
+        aov_nested=aov_nested,
+        direct_light_samples=int(ip.get("light_samples", 1)),
+        direct_bsdf_samples=int(ip.get("bsdf_samples", 1)),
     ).to(device)
 
 

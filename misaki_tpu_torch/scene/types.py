@@ -229,6 +229,13 @@ class CompiledScene(_Tables):
     # static tuple of material-slot base columns that reference a bitmap;
     # the other slots skip the texel fetch
     bitmap_slots: tuple = ()
+    # integrator settings (misaki_tpu/scene/compiler.py:1375-1384): the
+    # `aov` integrator's "name:type" entries and its nested radiance
+    # integrator; the `direct` integrator's sample counts per strategy
+    aovs: tuple = ()
+    aov_nested: str = "path"
+    direct_light_samples: int = 1
+    direct_bsdf_samples: int = 1
     device: Any = field(default=torch.device("cpu"))
 
     def to(self, device):

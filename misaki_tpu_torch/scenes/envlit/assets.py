@@ -9,7 +9,8 @@
 
     python -m misaki_tpu_torch.scenes.envlit.assets DIR [--small]
 
-writes both next to a copy of scene.xml in DIR and prints the XML's path.
+writes both next to copies of scene.xml and aov.xml (the same scene under
+the `aov` integrator) in DIR and prints scene.xml's path.
 """
 
 import argparse
@@ -20,6 +21,7 @@ from pathlib import Path
 import numpy as np
 
 SCENE_XML = Path(__file__).resolve().parent / "scene.xml"
+AOV_XML = SCENE_XML.with_name("aov.xml")
 SKY_SHAPE = (2048, 4096)
 FLOOR_RES = 1024
 CHECKER_TILES = 8
@@ -88,22 +90,23 @@ def floor_rgb(res=FLOOR_RES, seed=1):
 
 
 def write_assets(out_dir, sky_shape=SKY_SHAPE, floor_res=FLOOR_RES):
-    """Write sky.hdr, floor.hdr and a copy of scene.xml into `out_dir`;
-    returns the XML's path."""
+    """Write sky.hdr, floor.hdr and copies of scene.xml and aov.xml into
+    `out_dir`; returns scene.xml's path."""
     out = Path(out_dir)
     out.mkdir(parents=True, exist_ok=True)
     write_rgbe(out / "sky.hdr", sky_rgb(sky_shape))
     write_rgbe(out / "floor.hdr", floor_rgb(floor_res))
+    shutil.copyfile(AOV_XML, out / "aov.xml")
     shutil.copyfile(SCENE_XML, out / "scene.xml")   # last: marks the set complete
     return out / "scene.xml"
 
 
 def prepared(root, sky_shape=SKY_SHAPE, floor_res=FLOOR_RES):
     """The scene's XML under `root`/<hash>/, its assets written at first use:
-    the hash covers this module, the XML and the sizes, so an edit writes a
-    fresh set. Returns the XML's path."""
+    the hash covers this module, the XMLs and the sizes, so an edit writes a
+    fresh set. Returns scene.xml's path (aov.xml lies beside it)."""
     h = hashlib.sha256(Path(__file__).read_bytes() + SCENE_XML.read_bytes()
-                       + repr((sky_shape, floor_res)).encode())
+                       + AOV_XML.read_bytes() + repr((sky_shape, floor_res)).encode())
     xml = Path(root) / h.hexdigest()[:16] / "scene.xml"
     if not xml.exists():
         write_assets(xml.parent, sky_shape, floor_res)

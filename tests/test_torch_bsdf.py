@@ -14,12 +14,13 @@ exempt, and each case prints how many:
     0.75), which may branch the other way in one package: at most 0.1% of
     the lanes;
   * an ill-conditioned lane that still agrees to rtol 1e-3, atol 1e-5: at
-    most 0.5% of the lanes.
-    torch's float32 sqrt on the CPU is not correctly rounded on about 0.5%
-    of inputs (XLA's is), and a float32 cancellation such as
-    sin = sqrt(1 - cos^2) near the pole, or the refraction Jacobian's
-    (wi.m + eta wo.m)^2, turns that last bit into up to 1e-4 relative.
-    With a correctly rounded sqrt in the port these lanes agree to 1e-5.
+    most 0.2% of the lanes.
+    A float32 cancellation such as sin = sqrt(1 - cos^2) near the pole, the
+    refraction Jacobian's (wi.m + eta wo.m)^2 or Disney's tint (a near-black
+    base over its luminance) turns a last-bit difference of a transcendental
+    function (exp, log, pow, atan2) into up to 1e-4 relative. The port's
+    sqrt is correctly rounded on the CPU, as XLA's is (core/math.py `sqrt`);
+    torch's own float32 sqrt is not, and exempted up to 0.5% of the lanes.
 """
 
 from types import SimpleNamespace
@@ -86,7 +87,7 @@ N_ROWS = 64
 RTOL, ATOL = 1e-5, 1e-6
 COND_RTOL, COND_ATOL = 1e-3, 1e-5   # the ill-conditioned lanes' bound
 EXEMPT_SHARE = 1e-3   # lanes near a branch threshold
-COND_SHARE = 5e-3     # ill-conditioned lanes
+COND_SHARE = 2e-3     # ill-conditioned lanes
 NEAR = 1e-6
 
 
@@ -128,8 +129,16 @@ def test_math_helpers(fn, lanes):
         args = (a, b)
     else:
         args = (a,)
-    _close(getattr(jmath, fn)(*(jnp.asarray(x) for x in args)),
-           getattr(pmath, fn)(*(t(x) for x in args)), rtol=1e-6, atol=1e-7)
+    want = np.asarray(getattr(jmath, fn)(*(jnp.asarray(x) for x in args)))
+    got = n(getattr(pmath, fn)(*(t(x) for x in args)))
+    # every helper's lanes lie on the leading axis
+    bad = ~np.isclose(got, want, rtol=1e-6, atol=1e-7).reshape(L, -1).all(axis=1)
+    first = np.nonzero(bad)[0][:8]
+    assert not bad.any(), (
+        f"{fn}: {int(bad.sum())} of {L} lanes differ (cpu capability "
+        f"{torch.backends.cpu.get_cpu_capability()}, {torch.get_num_threads()} threads); "
+        f"lanes {first.tolist()}: inputs {[x[first] for x in args]}, "
+        f"misaki_tpu {want[first]}, port {got[first]}")
 
 
 def test_tan_theta(lanes):

@@ -6,6 +6,7 @@ differ in the last bit)."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from torch_helpers import n, t
 
@@ -16,6 +17,7 @@ from misaki_tpu.core import table as jtable
 from misaki_tpu.core import vec as jvec
 from misaki_tpu.core import warp as jwarp
 from misaki_tpu_torch.core import frame as pframe
+from misaki_tpu_torch.core import math as pmath
 from misaki_tpu_torch.core import spectrum as pspec
 from misaki_tpu_torch.core import srgb_upsample as psrgb
 from misaki_tpu_torch.core import table as ptable
@@ -174,3 +176,34 @@ def test_srgb_model_eval(wavelengths):
 def test_fit_srgb_coeffs(rgb):
     np.testing.assert_allclose(psrgb.fit_srgb_coeffs(rgb), jsrgb.fit_srgb_coeffs(rgb),
                                rtol=1e-6, atol=1e-12)
+
+
+def test_sqrt_correctly_rounded():
+    """The port's float32 sqrt on the CPU equals the float64 root rounded
+    once to float32 (correctly rounded, as 53 >= 2 * 24 + 2) on 2^20 random
+    float32 inputs spread over many binades, and on 0, inf and a subnormal."""
+    rs = np.random.default_rng(17)
+    x = np.exp2(rs.uniform(-40, 40, 1 << 20)).astype(np.float32)
+    x[:4] = [0.0, np.inf, 1e-40, 1.0]
+    want = np.sqrt(x.astype(np.float64)).astype(np.float32)
+    got = n(pmath.sqrt(t(x)))
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(got, want)
+    # what the helper repairs: torch's own float32 sqrt on this CPU, counted
+    raw = torch.sqrt(t(x)).numpy()
+    print(f"torch.sqrt float32 differs from the correctly rounded root on "
+          f"{int((raw != want).sum())} of {x.size} inputs")
+
+
+def test_mean_wavelengths_equal_jnp_linspace():
+    """The 16 wavelengths of srgb_model_mean, bit for bit as jnp.linspace
+    makes them."""
+    want = np.asarray(jnp.linspace(360.0, 830.0, 16))
+    got = np.asarray(psrgb.MEAN_WAVELENGTHS, np.float32)
+    assert want.dtype == np.float32
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+    # and the model mean over them, summed in jnp.mean's order
+    coeff = (np.random.default_rng(3).normal(size=(4096, 3))
+             * [1e-4, 1e-1, 10.0]).astype(np.float32)
+    np.testing.assert_array_equal(n(psrgb.srgb_model_mean(coeff)),
+                                  np.asarray(jsrgb.srgb_model_mean(coeff)))

@@ -3,7 +3,7 @@ point light) and the compiled tables of the gallery and both test balls,
 the port against misaki_tpu on the CPU.
 
 The tables are numpy on the host in both packages and must be equal to the
-bit, but for one column explained in the test. The gallery render runs on
+bit. The gallery render runs on
 the same XML, seed and depth in both packages, misaki_tpu with
 MISAKI_FORCE_PAGED=1 as its own tests run it (its texel fetch through the
 paged path's plain reference), and is held to the golden criteria of
@@ -36,7 +36,6 @@ from misaki_tpu_torch.scene.types import (
     MASK_FLAG,
     MC_ALPHA_U,
     MC_ALPHA_V,
-    MC_SSW,
 )
 from misaki_tpu_torch.scenes.materials import assets
 
@@ -65,12 +64,7 @@ def test_tables_equal_misaki_tpu(name, gallery_xml):
     path = gallery_xml if name == "gallery" else TESTBALLS[name]
     ja, _, ps = _compile_both(path, spp=1, width=8, height=8)
     got, want = n(ps.materials.params), ja.materials.params
-    # one known difference: roughplastic's specular sampling weight reads
-    # srgb_model_mean, whose 16 float32 wavelengths torch.linspace and
-    # jnp.linspace round differently at 4 points; the weight agrees to an ulp
-    rest = np.arange(len(want)) != MC_SSW
-    np.testing.assert_array_equal(got[rest], want[rest])
-    np.testing.assert_allclose(got[MC_SSW], want[MC_SSW], rtol=2.5e-7, atol=0)
+    np.testing.assert_array_equal(got, want)
     assert ps.bsdf_kinds == tuple(ja.bsdf_kinds)
     assert ps.bitmap_slots == tuple(ja.bitmap_slots)
     assert ps.emitter_kinds == tuple(ja.emitter_kinds)

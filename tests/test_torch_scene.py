@@ -195,7 +195,9 @@ def test_port_never_imports_jax():
         "  'misaki_tpu_torch.render.camera', 'misaki_tpu_torch.render.interaction',\n"
         "  'misaki_tpu_torch.render.textures', 'misaki_tpu_torch.render.integrator',\n"
         "  'misaki_tpu_torch.render.film', 'misaki_tpu_torch.render.driver',\n"
-        "  'misaki_tpu_torch.bsdf.kernels', 'misaki_tpu_torch.emitter.kernels']\n"
+        "  'misaki_tpu_torch.bsdf.kernels', 'misaki_tpu_torch.emitter.kernels',\n"
+        "  'misaki_tpu_torch.render.aov', 'misaki_tpu_torch.utils.logging',\n"
+        "  'misaki_tpu_torch.tools.bench']\n"
         "for m in mods: importlib.import_module(m)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'misaki_tpu' or m.startswith('misaki_tpu.')]\n"
