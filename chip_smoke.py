@@ -69,6 +69,26 @@ Phases, one line each; any failure exits non-zero:
      raises after chunk 9, then resumed: the film equal to the bit to an
      uninterrupted render's; the CLI on cuda writes envlit/aov.xml's EXR and
      one EXR per AOV, read back with tests/test_torch_driver.py's reader;
+ 15. gradients (misaki_tpu_torch.diff): (a) five Adam steps of train_step on
+     cbox at the benchmark spec (depth cap 4, leaves materials, rad_coeff,
+     rad_curve) toward a target rendered with the red wall's reflectance
+     slot taken from the green wall's column: the loss falls, every
+     gradient is finite, the red wall's slot has a gradient, the step-0
+     directional FD agrees within 10%, the same step's gradients on CUDA
+     and on the CPU at 64x48 x 16 spp within 1e-4 relative L1; seconds per
+     step (the frame is one autograd pass), peak memory, launches per step;
+     (b) one image_grads of the image mean over bitmaps and env_rgb on
+     envlit at the same spec: backward fetch launches equal the forward
+     fetches, directional FDs within 5%, the same gradient on CUDA and on
+     the CPU at 64x48 x 16 spp within 1e-4 relative L1, and where that gap
+     comes from (the plain twin's sums with the taps or the output
+     gradients of one device and the rest of the other's); (c) the fetch's
+     backward kernel against its index_add_ twin (allclose rtol 1e-5, atol
+     1e-6 of the largest magnitude) on the taps of every backward launch of
+     that gradient (2^22 lanes each) and at 2^20 lanes on phase 6's
+     env_random, bitmap_camera_mips and env_nee taps, beside the library
+     call index_add_; (d) the envlit gradient's peak memory and time by
+     chunk size;
 then the port's bench (python -m misaki_tpu_torch.tools.bench), its lines
 printed with a "[bench]" prefix. Timed and profiled frames pass the bench's
 `quiet` progress callback, so the driver's progress log stays out of them.
@@ -80,6 +100,7 @@ it). Then one JSON line with the kernels' numbers, and last the result line
 """
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -104,8 +125,11 @@ def fail(msg):
     sys.exit(1)
 
 
+T_START = time.perf_counter()
+
+
 def phase(name, msg):
-    print(f"[{name}] {msg}", flush=True)
+    print(f"[{name}] {msg} [t+{time.perf_counter() - T_START:.1f} s]", flush=True)
 
 
 def camera_like_rays(n, center, extent, gen):
@@ -237,6 +261,7 @@ def reset_counts():
     cl.closest_launches = 0
     cl.anyhit_launches = 0
     tf.fetch_launches = 0
+    tf.fetch_bwd_launches = 0
 
 
 def read_counts():
@@ -244,17 +269,18 @@ def read_counts():
     from misaki_tpu_torch.render import texel_fetch as tf
 
     return {"closest": cl.closest_launches, "anyhit": cl.anyhit_launches,
-            "fetch": tf.fetch_launches}
+            "fetch": tf.fetch_launches, "fetch_bwd": tf.fetch_bwd_launches}
 
 
 def timed_frames(scene, label, want_per_chunk, n_frames=N_FRAMES, warmup=None):
     """A warm-up frame (of `warmup`, else of `scene`), then `n_frames` timed
     frames of `scene` on cuda with every launch count set to 0 just before
     them and read just after; fails unless the counts are n_frames * chunks
-    * `want_per_chunk`. Rays per frame count `bench.py:65-68`'s way, W * H *
-    spp * rays per sample (tools/bench.py `rays_per_sample`: 1 + 2 * bounce
-    iterations on a path frame). Returns (last frame's output, seconds per
-    frame, rays/s, launches)."""
+    * `want_per_chunk` and the fetch's backward never ran. Rays per frame
+    count `bench.py:65-68`'s way, W * H * spp * rays per sample
+    (tools/bench.py `rays_per_sample`: 1 + 2 * bounce iterations on a path
+    frame). Returns (last frame's output, seconds per frame, rays/s,
+    launches)."""
     import torch
 
     from misaki_tpu_torch.render.driver import render
@@ -276,7 +302,8 @@ def timed_frames(scene, label, want_per_chunk, n_frames=N_FRAMES, warmup=None):
     torch.cuda.synchronize()
     dt = (time.perf_counter() - t0) / n_frames
     launches = read_counts()
-    want = {k: n_frames * n_chunks * v for k, v in want_per_chunk.items()}
+    # a frame under inference_mode never launches the fetch's backward
+    want = {"fetch_bwd": 0, **{k: n_frames * n_chunks * v for k, v in want_per_chunk.items()}}
     rays_per_s = n_samples * per_sample / dt
     phase(label, f"{scene.film_width}x{scene.film_height} {scene.spp} spp, {scene.integrator}, "
                  f"{n_iters} bounce iterations, {per_sample} rays per sample: {dt:.4f} s/frame, "
@@ -335,7 +362,7 @@ def phase_debug(profiles):
     phase("11", f"bunny pixels {hit.mean():.4f}, mean |n| there {mean_n:.4f}; checks {checks}")
     if not all(checks.values()):
         fail(f"phase 11: image checks failed {checks}")
-    profiles["bunny_debug"] = try_profile(scene, dt, "11", "profile_bunny_debug.txt")
+    profiles["bunny_debug"] = try_profile(frame(scene), dt, "11", "profile_bunny_debug.txt")
     small = load_and_compile(str(SCENES / "bunny_debug.xml"), width=96, height=96, device="cpu")
     return {"frame_s": dt, "rays_per_s": rays, "launches": launches,
             "cuda_vs_cpu": cuda_vs_cpu(small, "11")}
@@ -364,7 +391,7 @@ def phase_direct(profiles):
                 f"{rgb.mean(axis=(0, 1)).tolist()}; checks {checks}")
     if not all(checks.values()):
         fail(f"phase 12: image checks failed {checks}")
-    profiles["cbox_direct"] = try_profile(scene, dt, "12", "profile_cbox_direct.txt")
+    profiles["cbox_direct"] = try_profile(frame(scene), dt, "12", "profile_cbox_direct.txt")
     small = load_and_compile(str(xml), spp=8, width=64, height=64, device="cpu")
     return {"frame_s": dt, "rays_per_s": rays, "launches": launches,
             "cuda_vs_cpu": cuda_vs_cpu(small, "12")}
@@ -420,7 +447,7 @@ def phase_aov(envlit_xml, profiles):
                 f"{n_len[hit].min().item():.6f}..{n_len[hit].max().item():.6f}; checks {checks}")
     if not all(checks.values()):
         fail(f"phase 13: AOV checks failed {checks}")
-    profiles["envlit_aov"] = try_profile(scene, dt, "13", "profile_envlit_aov.txt")
+    profiles["envlit_aov"] = try_profile(frame(scene), dt, "13", "profile_envlit_aov.txt")
     small = load_and_compile(str(xml), spp=4, width=64, height=64, device="cpu")
     return {"frame_s": dt, "rays_per_s": rays, "launches": launches,
             "cuda_vs_cpu": cuda_vs_cpu(small, "13")}
@@ -488,6 +515,333 @@ def phase_checkpoint(envlit_xml):
     if not ok:
         fail("phase 14: the CLI's EXR files are not what was rendered")
     return {"snapshot_chunk": snapshot_chunk, "film_bit_equal": equal, "exr_files": shapes}
+
+
+TRAIN_STEPS = 5
+TRAIN_LR = 0.02          # Adam step of a material, in units of the sigmoid's argument
+EMITTER_LR = 0.1         # an emitter leaf's step relative to a material's
+GRAD_CHUNKS = (20, 21, 22)
+
+
+def lever_lrs(leaves):
+    """Per-coordinate Adam steps: TRAIN_LR in the sigmoid's argument divided
+    by each coefficient's lever arm (c0 multiplies lambda^2 ~ 600^2, c1
+    lambda ~ 600; tests/test_diff_and_sharding.py:52-67); a radiance curve
+    moves by TRAIN_LR of its mean magnitude. The emitter leaves take
+    EMITTER_LR of that: the light's brightness moves every pixel."""
+    import torch
+
+    from misaki_tpu_torch.scene.types import MC_OPACITY, MC_REFL, MC_SPEC_REFL, MC_SPEC_TRANS
+
+    lrs = {}
+    for k, v in leaves.items():
+        lr = torch.full_like(v, TRAIN_LR, dtype=torch.float64)
+        if k == "materials":
+            for base in (MC_REFL, MC_SPEC_REFL, MC_SPEC_TRANS, MC_OPACITY):
+                for off in (1, 4):
+                    lr[base + off] /= 600.0 ** 2
+                    lr[base + off + 1] /= 600.0
+        elif k == "rad_coeff":
+            lr *= EMITTER_LR
+            lr[:, 0] /= 600.0 ** 2
+            lr[:, 1] /= 600.0
+        elif k == "rad_curve":
+            lr *= EMITTER_LR * v.abs().mean(dim=1, keepdim=True).double()
+        lrs[k] = lr
+    return lrs
+
+
+def rel_l1(got, want):
+    """sum |got - want| / sum |want| of two tensors, on the CPU."""
+    got, want = got.detach().cpu().double(), want.detach().cpu().double()
+    return float((got - want).abs().sum() / want.abs().sum().clamp(min=1e-30))
+
+
+def gradient_timing(stats):
+    """The seconds of a gradient in words: the primal (two passes only) and
+    the render under autograd with its backward."""
+    passes = (f"one pass of {stats['chunk']} lanes" if stats["chunks"] == 1 else
+              f"primal {stats['primal_s']:.4f} s, then {stats['chunks']} chunks of "
+              f"{stats['chunk']}")
+    return (f"{stats['primal_s'] + stats['backward_s']:.4f} s ({passes}; render under autograd "
+            f"and backward {stats['backward_s']:.4f} s), peak "
+            f"{(stats['peak_bytes'] or 0) / 2 ** 30:.3f} GiB")
+
+
+def primal_chunks(stats):
+    """The primal render's chunks of a gradient: none in one pass."""
+    return 0 if stats["chunks"] == 1 else -(-BENCH_W * BENCH_H * BENCH_SPP // BENCH_CHUNK)
+
+
+def phase_train():
+    """Phase 15 (a): five Adam steps of train_step on cbox at the benchmark
+    spec from the original materials toward a target rendered with the red
+    wall's reflectance slot taken from the green wall's column; the same
+    step's gradients on the card and on the CPU at phase 5's reduced size.
+    Returns its numbers."""
+    import numpy as np
+    import torch
+
+    from misaki_tpu_torch.diff import get_leaves, replace_leaves
+    from misaki_tpu_torch.diff.train import DEFAULT_TRAIN_LEAVES, lever_direction, train_step
+    from misaki_tpu_torch.render.driver import render
+    from misaki_tpu_torch.scene.compiler import load_and_compile
+    from misaki_tpu_torch.scene.types import MC_REFL, SPEC_SLOT_COLS
+    from misaki_tpu_torch.tools.bench import quiet
+
+    slot = slice(MC_REFL, MC_REFL + SPEC_SLOT_COLS)
+
+    def cbox(**kw):
+        scene = load_and_compile(str(CBOX_XML), **kw).replace(max_depth=BENCH_DEPTH + 1)
+        red, green = (int(scene.shape_bsdf[i]) for i in (5, 4))   # scene.xml's shape order
+        mats = scene.materials.params.clone()
+        mats[slot, red] = mats[slot, green]
+        target = render(replace_leaves(scene, {"materials": mats}), seed=0,
+                        depth_cap=BENCH_DEPTH, progress=quiet)["rgb"]
+        return scene, target, red
+
+    scene, target, red = cbox(spp=BENCH_SPP, width=BENCH_W, height=BENCH_H)
+
+    def loss_of(values):
+        out = render(replace_leaves(scene, values), seed=0, depth_cap=BENCH_DEPTH,
+                     progress=quiet)
+        return float(torch.mean((out["rgb"].double() - target.double()) ** 2))
+
+    # warm-up: the first gradient of a process pays for autograd's set-up
+    warm = scene.replace(spp=4, film_width=64, film_height=64)
+    train_step(warm, torch.zeros((64, 64, 3), device="cuda"), depth_cap=BENCH_DEPTH)
+    values = {k: v.clone() for k, v in get_leaves(scene, DEFAULT_TRAIN_LEAVES).items()}
+    lrs = lever_lrs(values)
+    m1 = {k: torch.zeros_like(v, dtype=torch.float64) for k, v in values.items()}
+    m2 = {k: torch.zeros_like(v, dtype=torch.float64) for k, v in values.items()}
+    eps = {}
+    steps, losses, finite = [], [], True
+    for step in range(1, TRAIN_STEPS + 1):
+        stats = {}
+        reset_counts()
+        t0 = time.perf_counter()
+        loss, grads = train_step(replace_leaves(scene, values), target, seed=0,
+                                 depth_cap=BENCH_DEPTH, stats=stats)
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        launches = read_counts()
+        losses.append(float(loss))
+        finite &= all(bool(torch.isfinite(g).all()) for g in grads.values())
+        if step == 1:
+            g0 = {k: g.clone() for k, g in grads.items()}
+        for k, g in grads.items():
+            g = g.double()
+            eps.setdefault(k, 1e-6 * max(g.abs().max().item(), 1e-30))
+            m1[k].mul_(0.9).add_(0.1 * g)
+            m2[k].mul_(0.999).add_(0.001 * g * g)
+            upd = lrs[k] * (m1[k] / (1 - 0.9 ** step)) / (
+                torch.sqrt(m2[k] / (1 - 0.999 ** step)) + eps[k])
+            values[k] = (values[k].double() - upd).float()
+        steps.append({"loss": float(loss), "step_s": step_s, **stats, "launches": launches})
+        phase("15", f"cbox train step {step}: loss {float(loss):.6e}; {step_s:.4f} s; "
+                    f"{gradient_timing(stats)}; launches {launches}")
+    final = loss_of(values)
+    profile = try_profile(lambda: train_step(replace_leaves(scene, values), target, seed=0,
+                                             depth_cap=BENCH_DEPTH),
+                          steps[-1]["step_s"], "15", "profile_cbox_train.txt", "step")
+    g_mats = g0["materials"].cpu().numpy()
+    red_grad = float(np.abs(g_mats[np.arange(slot.start, slot.stop), red]).max())
+    # the directional FD of the step-0 gradient
+    v0 = get_leaves(scene, ("materials",))["materials"]
+    dc = lever_direction(g_mats)
+    dct = torch.as_tensor(dc, device=v0.device)
+    fd = (loss_of({"materials": v0 + dct}) - loss_of({"materials": v0 - dct})) / 2.0
+    expected = float(np.sum(g_mats.astype(np.float64) * dc))
+    # the same step's gradients on the CPU and on the card at phase 5's size:
+    # the materials' one-hot matmul backward, the emitter leaves
+    small, small_target, _ = cbox(spp=16, width=64, height=48, device="cpu")
+    _, g_cpu = train_step(small, small_target, seed=7, depth_cap=BENCH_DEPTH)
+    _, g_cuda = train_step(small.to("cuda"), small_target.cuda(), seed=7, depth_cap=BENCH_DEPTH)
+    l1 = {k: rel_l1(g_cuda[k], g_cpu[k]) for k in DEFAULT_TRAIN_LEAVES}
+    n_iters = BENCH_DEPTH
+    n_passes = primal_chunks(steps[0]) + steps[0]["chunks"]
+    want = {"closest": n_passes * (1 + n_iters), "anyhit": n_passes * n_iters, "fetch": 0,
+            "fetch_bwd": 0}
+    checks = {"loss_falls": final < losses[0], "grads_finite": finite,
+              "red_wall_grad_nonzero": red_grad > 0.0,
+              "fd_within_10pct": expected > 0 and abs(fd - expected)
+              <= 0.1 * max(abs(fd), abs(expected)),
+              "launches": all(st["launches"] == want for st in steps),
+              **{f"cuda_vs_cpu_{k}": v < 1e-4 for k, v in l1.items()}}
+    step_s = float(np.mean([st["step_s"] for st in steps]))
+    phase("15", f"cbox 256x256 64 spp, depth cap {BENCH_DEPTH}, leaves {DEFAULT_TRAIN_LEAVES}: "
+                f"loss {losses[0]:.6e} before step 1, {final:.6e} after step {TRAIN_STEPS}; "
+                f"{step_s:.4f} s/step (primal {np.mean([s['primal_s'] for s in steps]):.4f}, "
+                f"render under autograd and backward "
+                f"{np.mean([s['backward_s'] for s in steps]):.4f}); "
+                f"red wall's largest slot gradient {red_grad:.3e}; directional FD {fd:.6e} "
+                f"against grad . dc {expected:.6e}; launches per step {steps[0]['launches']} "
+                f"expected {want}; 64x48 16 spp CUDA vs CPU relative L1 {l1}; checks {checks}")
+    if not all(checks.values()):
+        fail(f"phase 15: cbox training checks failed {checks}")
+    return {"losses": losses, "final_loss": final, "step_s": step_s, "steps": steps,
+            "profile": profile, "cuda_vs_cpu_l1": l1,
+            "fd": fd, "grad_dot_dc": expected, "red_wall_grad": red_grad,
+            "launches": {k: sum(st["launches"][k] for st in steps) for k in want},
+            "frames": TRAIN_STEPS}
+
+
+def captured_gradient(scene, names, loss_fn, stats=None):
+    """One image_grads at phase 7's reduced size (seed 7) with the taps of
+    every backward launch captured: -> (gradients, [(idx4, w4, grad_out, n)]
+    on the CPU)."""
+    import torch
+
+    from misaki_tpu_torch.diff.backprop import image_grads
+    from misaki_tpu_torch.tools import profile_texel_fetch as ptf
+
+    with ptf.captured_backward() as taps:
+        _, _, grads = image_grads(scene, names, loss_fn, seed=7, depth_cap=BENCH_DEPTH,
+                                  stats=stats)
+    return grads, [tuple(x.cpu() if torch.is_tensor(x) else x for x in t) for t in taps]
+
+
+def gap_anatomy(taps_cpu, taps_cuda, sizes):
+    """Where a CUDA and a CPU gradient part: from the taps (idx4, w4) and
+    output gradients (grad_out) of every backward launch on each device, the
+    plain twin sums each leaf's gradient on the CPU from the CUDA taps with
+    the CPU grad_out ("taps") and from the CPU taps with the CUDA grad_out
+    ("grad_out"). Returns {leaf: the relative L1 of each and of the CUDA
+    sums against the CPU's, and the share of taps whose id differs}, or
+    None where the launches' shapes differ between the devices."""
+    from misaki_tpu_torch.render import texel_fetch as tf
+
+    if [t[0].shape for t in taps_cpu] != [t[0].shape for t in taps_cuda]:
+        return None
+    res = {}
+    for leaf, n in sizes.items():
+        pairs = [(p, c) for p, c in zip(taps_cpu, taps_cuda) if p[3] == n]
+
+        def total(pick):
+            return sum(tf.fetch4_backward_plain(*pick(p, c), n) for p, c in pairs)
+
+        cpu = total(lambda p, c: p[:3])
+        res[leaf] = {
+            "cuda": rel_l1(total(lambda p, c: c[:3]), cpu),
+            "taps": rel_l1(total(lambda p, c: (c[0], c[1], p[2])), cpu),
+            "grad_out": rel_l1(total(lambda p, c: (p[0], p[1], c[2])), cpu),
+            "ids_differ": sum(int((p[0] != c[0]).sum()) for p, c in pairs)
+            / max(sum(p[0].numel() for p, _ in pairs), 1)}
+    return res
+
+
+def phase_envlit_grad(envlit_xml, envlit):
+    """Phase 15 (b)-(d): one image_grads over bitmaps and env_rgb on envlit
+    at the benchmark spec (launches, directional FDs, CUDA against the CPU
+    at phase 7's reduced size, with the anatomy of their gap); the backward
+    kernel against its twin and index_add_ on the taps of the gradient's
+    own launches and at 2^20 lanes on phase 6's cells; the peak memory by
+    chunk size. Returns its numbers."""
+    import torch
+
+    from misaki_tpu_torch.diff import get_leaves, replace_leaves
+    from misaki_tpu_torch.diff.backprop import GRAD_CHUNK, image_grads
+    from misaki_tpu_torch.render.driver import render
+    from misaki_tpu_torch.render.integrator import n_bounce_iters
+    from misaki_tpu_torch.scene.compiler import load_and_compile
+    from misaki_tpu_torch.tools import profile_texel_fetch as ptf
+    from misaki_tpu_torch.tools.bench import quiet
+
+    names = ("bitmaps", "env_rgb")
+
+    def mean_loss(rgb):
+        return rgb.mean()
+
+    stats = {}
+    reset_counts()
+    loss, _, grads = image_grads(envlit, names, mean_loss, seed=0, depth_cap=BENCH_DEPTH,
+                                 stats=stats)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    n_iters = n_bounce_iters(envlit, BENCH_DEPTH)
+    per_chunk = 1 + n_iters * (len(envlit.bitmap_slots) * len(envlit.bitmap_meta) + 2)
+    n_passes = primal_chunks(stats) + stats["chunks"]
+    want = {"closest": n_passes * (1 + n_iters), "anyhit": n_passes * n_iters,
+            "fetch": n_passes * per_chunk, "fetch_bwd": stats["chunks"] * per_chunk}
+
+    def loss_at(values):
+        out = render(replace_leaves(envlit, values), seed=0, depth_cap=BENCH_DEPTH,
+                     progress=quiet)
+        return float(out["rgb"].double().mean())
+
+    # steps along sign(g), each a share of its texel's value: the spectral
+    # lift clamps at 0 (render/textures.py, emitter/kernels.py), so a step
+    # that took a dark texel below 0 would leave the linear range
+    fds = {}
+    for leaf, step in (("env_rgb", 0.05), ("bitmaps", 0.02)):
+        v0 = get_leaves(envlit, (leaf,))[leaf]
+        d = torch.sign(grads[leaf]) * step * v0.abs()
+        fd = (loss_at({leaf: v0 + d}) - loss_at({leaf: v0 - d})) / 2.0
+        expected = float((grads[leaf].double() * d.double()).sum())
+        fds[leaf] = {"fd": fd, "grad_dot_d": expected,
+                     "ok": expected > 0 and abs(fd - expected) <= 0.05 * abs(expected)}
+    # the same gradient on the CPU and on the card at phase 7's reduced size
+    small = load_and_compile(str(envlit_xml), spp=16, width=64, height=48, device="cpu")
+    cpu = {}
+    g_cpu, taps_cpu = captured_gradient(small, names, mean_loss, stats=cpu)
+    g_cuda, taps_cuda = captured_gradient(small.to("cuda"), names, mean_loss)
+    l1 = {k: rel_l1(g_cuda[k], g_cpu[k]) for k in names}
+    anatomy = gap_anatomy(taps_cpu, taps_cuda, {
+        "bitmaps": small.bitmaps.shape[0],
+        "env_rgb": small.emitters.env_rgb.reshape(-1, 3).shape[0]})
+    checks = {"grads_finite": all(bool(torch.isfinite(g).all()) for g in grads.values()),
+              "launches": launches == want,
+              **{f"fd_{k}": v["ok"] for k, v in fds.items()},
+              **{f"cuda_vs_cpu_{k}": v < 1e-4 for k, v in l1.items()}}
+    phase("15", f"envlit 256x256 64 spp gradient of the image mean over {names}: "
+                f"{gradient_timing(stats)}; launches {launches} expected {want}; "
+                f"directional FD {fds}; 64x48 16 spp CUDA vs CPU relative L1 {l1} (the CPU "
+                f"gradient {cpu['primal_s'] + cpu['backward_s']:.1f} s); the gap's anatomy "
+                f"(relative L1 of the twin's sums from the CUDA taps or the CUDA grad_out, "
+                f"the other half the CPU's) {anatomy}; checks {checks}")
+    if not all(checks.values()):
+        fail(f"phase 15: envlit gradient checks failed {checks}")
+
+    # (c) the backward kernel against its twin and index_add_, on the taps of
+    # the gradient's own launches and at 2^20 lanes on phase 6's cells
+    main_taps = ptf.gradient_taps(envlit, names, depth_cap=BENCH_DEPTH)
+    on_path = ptf.profile_gradient_taps(main_taps, reps=10)
+    del main_taps
+    for k, c in enumerate(on_path["launches"]):
+        phase("15", f"backward launch {k} of the gradient: lanes={c['lanes']} "
+                    f"texels={c['texels']} distinct_live_texels={c['distinct_live_texels']} "
+                    f"allclose={c['allclose']} max_abs_err={c['max_abs_err']:.3e} (scale "
+                    f"{c['scale']:.3e}) kernel_ms={c['ms']:.4f} bound_ms={c['bound_ms']:.4f} "
+                    f"plain_ms={c['plain_ms']:.4f} index_add_ms={c['index_add_ms']:.4f}")
+    phase("15", f"backward, the gradient's {len(on_path['launches'])} launches: kernel "
+                f"{on_path['ms']:.4f} ms, bound {on_path['bound_ms']:.4f} ms "
+                f"({on_path['bound_by']}), plain {on_path['plain_ms']:.4f} ms, index_add_ "
+                f"{on_path['index_add_ms']:.4f} ms; all allclose {on_path['allclose']}")
+    bwd = ptf.profile_backward(envlit, reps=30)
+    for name, c in bwd.items():
+        phase("15", f"backward {name}: lanes={c['lanes']} texels={c['texels']} "
+                    f"distinct_live_texels={c['distinct_live_texels']} allclose={c['allclose']} "
+                    f"max_abs_err={c['max_abs_err']:.3e} (scale {c['scale']:.3e}) "
+                    f"kernel_ms={c['ms']:.4f} bound_ms={c['bound_ms']:.4f} ({c['bound_by']}) "
+                    f"rmw_bound_ms={c['rmw_bound_ms']:.4f} plain_ms={c['plain_ms']:.4f} "
+                    f"index_add_ms={c['index_add_ms']:.4f} "
+                    f"index_add_allclose={c['index_add_allclose']}")
+    if not (on_path["allclose"] and all(c["allclose"] for c in bwd.values())):
+        fail("phase 15: the texel-fetch backward kernel disagrees with its plain twin")
+
+    # (d) the peak memory and time by chunk size
+    by_chunk = {}
+    for k in GRAD_CHUNKS:
+        st = {}
+        image_grads(envlit, names, mean_loss, seed=0, depth_cap=BENCH_DEPTH,
+                    chunk_size=1 << k, stats=st)
+        by_chunk[k] = st
+        phase("15", f"envlit gradient with 2^{k}-lane chunks: {gradient_timing(st)}")
+    phase("15", f"default chunk GRAD_CHUNK = 2^{GRAD_CHUNK.bit_length() - 1}")
+    return {"loss": float(loss), "stats": stats, "launches": launches, "fd": fds,
+            "cuda_vs_cpu_l1": l1, "gap_anatomy": anatomy, "backward_on_path": on_path,
+            "backward_kernel": bwd,
+            "by_chunk": by_chunk, "frames": 1}
 
 
 def run_bench():
@@ -602,8 +956,14 @@ def main():
                          timeout=60)
     smi_line = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 and smi.stdout.strip() \
         else "nvidia-smi: not available"
+    # the CPU halves of the CUDA-vs-CPU checks: one intra-op thread per CPU
+    # this process may run on
+    cpus = len(os.sched_getaffinity(0))
+    threads = torch.get_num_threads()
+    torch.set_num_threads(cpus)
     phase("1", f"device {device_name}, count {torch.cuda.device_count()}, torch {torch.__version__}, "
-               f"cuda {torch.version.cuda}")
+               f"cuda {torch.version.cuda}; CPUs {os.cpu_count()}, {cpus} usable, torch threads "
+               f"{threads} -> {torch.get_num_threads()}")
     print(smi_line, flush=True)
     OUT_DIR.mkdir(exist_ok=True)
 
@@ -693,7 +1053,7 @@ def main():
     np.save(OUT_DIR / "cbox_bench_rgb.npy", rgb)
 
     # device-time breakdown of one frame (torch.profiler; CUDA events above)
-    profile_cbox = try_profile(cbox, dt, "4", "profile.txt")
+    profile_cbox = try_profile(frame(cbox), dt, "4", "profile.txt")
 
     # ---- phase 5: cuda vs cpu on a small cbox
     cuda_vs_cpu(load_and_compile(str(CBOX_XML), spp=16, width=64, height=48, device="cpu"), "5")
@@ -734,7 +1094,7 @@ def main():
     if not all(checks.values()):
         fail(f"phase 7: image checks failed {checks}")
     np.save(OUT_DIR / "envlit_bench_rgb.npy", rgb)
-    profile_env = try_profile(envlit, dt_env, "7", "profile_envlit.txt")
+    profile_env = try_profile(frame(envlit), dt_env, "7", "profile_envlit.txt")
     small = load_and_compile(str(envlit_xml), spp=16, width=64, height=48, device="cpu")
     env_mean_rel, env_l1_rel = cuda_vs_cpu(small, "7")
 
@@ -777,7 +1137,7 @@ def main():
     rgb = out["rgb"].cpu().numpy()
     np.save(OUT_DIR / "gallery_bench_rgb.npy", rgb)
     ball_checks(gallery, rgb, [(i,) for i in range(9)], 9, "9")
-    profile_gal = try_profile(gallery, dt_gal, "9", "profile_gallery.txt")
+    profile_gal = try_profile(frame(gallery), dt_gal, "9", "profile_gallery.txt")
     small = load_and_compile(str(gallery_xml), spp=2, width=32, height=24, device="cpu")
     gal_cuda_vs_cpu = cuda_vs_cpu(small, "9")
 
@@ -809,7 +1169,7 @@ def main():
                       progress=quiet)
         torch.cuda.synchronize()
         part_s = time.perf_counter() - t0
-        prof_tb = try_profile(part, part_s, "10", f"profile_{fig}.txt")
+        prof_tb = try_profile(frame(part), part_s, "10", f"profile_{fig}.txt")
         small = load_and_compile(str(xml), spp=2, width=32, height=18, device="cpu")
         balls[fig] = {"scene": xml_name, "frame_s": dt_tb, "rays_per_s": rays_tb,
                       "launches": launches_tb, "spp16_frame_s": part_s, "spp16_profile": prof_tb,
@@ -821,6 +1181,11 @@ def main():
                  "cbox_direct": phase_direct(new_profiles),
                  "envlit_aov": phase_aov(envlit_xml, new_profiles)}
     checkpoint = phase_checkpoint(envlit_xml)
+
+    # ---- phase 15: gradients — cbox training, the envlit texture and envmap
+    # gradient, the backward kernel
+    train = phase_train()
+    grad = phase_envlit_grad(envlit_xml, envlit)
     bench = run_bench()
 
     main_case = report["cbox_camera"]
@@ -828,13 +1193,18 @@ def main():
     main_runs = {"cbox": (launches_cbox, N_FRAMES), "envlit": (launches_env, N_FRAMES),
                  "gallery": (launches_gal, N_FRAMES),
                  **{fig: (b["launches"], 1) for fig, b in balls.items()},
-                 **{path: (r["launches"], N_FRAMES) for path, r in new_paths.items()}}
+                 **{path: (r["launches"], N_FRAMES) for path, r in new_paths.items()},
+                 "cbox_train_step": (train["launches"], train["frames"]),
+                 "envlit_gradient": (grad["launches"], grad["frames"])}
 
     def launches(key):
-        return sum(counts[key] for counts, _ in main_runs.values())
+        return sum(counts.get(key, 0) for counts, _ in main_runs.values())
 
     def per_frame(key):
-        return {run: counts[key] / frames for run, (counts, frames) in main_runs.items()}
+        return {run: counts.get(key, 0) / frames for run, (counts, frames) in main_runs.items()}
+
+    bwd, bp = grad["backward_kernel"], grad["backward_on_path"]
+    n_bp = len(bp["launches"])
 
     kernels = {"kernels": [
         {"name": "cluster_closest_hit", "route": "cuda",
@@ -881,6 +1251,23 @@ def main():
          "library_ms": None,
          "empty_tree_ms": ms["closest-hit kernel, empty tree"],
          "random_rays_ms": ms["closest-hit kernel, random rays"]},
+        {"name": "texel_fetch_backward", "route": "cuda",
+         "source": "misaki_tpu_torch/csrc/texel_fetch.cu",
+         "replaces": "misaki_tpu/render/paged_fetch.py:55",
+         "backward_of": "texel_fetch (the JAX package has no backward kernel: it "
+                        "differentiates the one-hot fetch, misaki_tpu/core/table.py:26-58)",
+         "launches": launches("fetch_bwd"),
+         "launches_per_frame": per_frame("fetch_bwd"),
+         # per launch, the mean over the envlit gradient's own launches (2^22
+         # lanes each); the sums over them and phase 6's 2^20-lane cells beside
+         "max_abs_err": max([bp["max_abs_err"]] + [c["max_abs_err"] for c in bwd.values()]),
+         "ms": bp["ms"] / n_bp, "plain_ms": bp["plain_ms"] / n_bp,
+         "bound_ms": bp["bound_ms"] / n_bp, "bound_by": bp["bound_by"],
+         "library_ms": bp["index_add_ms"] / n_bp, "gradient_launches": n_bp,
+         "gradient_ms": bp["ms"], "gradient_bound_ms": bp["bound_ms"],
+         "gradient_library_ms": bp["index_add_ms"],
+         **{f"{cell}_{k}": bwd[cell][k] for cell in bwd
+            for k in ("ms", "plain_ms", "bound_ms", "index_add_ms")}},
     ]}
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
         {"device": device_name, "nvidia_smi": smi_line, "cluster_kernels": report,
@@ -894,27 +1281,36 @@ def main():
                      "profile": profile_gal, "cuda_vs_cpu": gal_cuda_vs_cpu},
          "testballs": balls,
          **{path: {**r, "profile": new_profiles[path]} for path, r in new_paths.items()},
-         "checkpoint": checkpoint, "bench": bench}, indent=1))
+         "checkpoint": checkpoint, "cbox_train": train, "envlit_gradient": grad,
+         "bench": bench}, indent=1))
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name,
                                              "count": torch.cuda.device_count()}}), flush=True)
 
 
-def try_profile(scene, frame_s, label, table_name):
-    """One frame under torch.profiler: device time by kernel, the number of
-    kernel launches, and the device's busy share of an unprofiled frame
-    (`frame_s`). The table goes to chiprun_out/`table_name`. Returns the
-    numbers, or None when the profiler recorded no device time."""
+def frame(scene):
+    """One frame of `scene` at the benchmark's chunk and depth, for
+    try_profile."""
+    from misaki_tpu_torch.render.driver import render
+    from misaki_tpu_torch.tools.bench import quiet
+
+    return lambda: render(scene, seed=11, chunk_size=BENCH_CHUNK, depth_cap=BENCH_DEPTH,
+                          progress=quiet)
+
+
+def try_profile(run, run_s, label, table_name, what="frame"):
+    """One call of `run` (a frame, or a gradient step) under torch.profiler:
+    device time by kernel, the number of kernel launches, and the device's
+    busy share of an unprofiled call (`run_s`). The table goes to
+    chiprun_out/`table_name`. Returns the numbers, or None when the profiler
+    recorded no device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from misaki_tpu_torch.render.driver import render
-    from misaki_tpu_torch.tools.bench import quiet
-
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        render(scene, seed=11, chunk_size=BENCH_CHUNK, depth_cap=BENCH_DEPTH, progress=quiet)
+        run()
         torch.cuda.synchronize()
     events = prof.key_averages()
     (OUT_DIR / table_name).write_text(events.table(sort_by="self_device_time_total",
@@ -942,14 +1338,14 @@ def try_profile(scene, frame_s, label, table_name):
     top = "; ".join(f"{e.key[:60]} {self_time(e) / 1e3:.3f} ms x{e.count}" for e in kernels[:6])
     cast_ms = {"closest": 1e3 * closest_t / max(n_closest, 1), "anyhit": 1e3 * any_t / max(n_any, 1)}
     fetch_ms = 1e3 * fetch_t / max(n_fetch, 1)
-    phase(label, f"profile of one frame: {launches} kernel launches, device busy {busy:.4f} s "
-                 f"= {busy / frame_s:.3f} of the unprofiled {frame_s:.4f} s frame; cluster "
+    phase(label, f"profile of one {what}: {launches} kernel launches, device busy {busy:.4f} s "
+                 f"= {busy / run_s:.3f} of the unprofiled {run_s:.4f} s {what}; cluster "
                  f"kernels {cluster_t:.4f} s = {cluster_t / busy:.3f} of device time (closest "
                  f"hit {closest_t:.4f} s over {n_closest} launches, {cast_ms['closest']:.4f} ms "
                  f"each; any hit {any_t:.4f} s over {n_any}, {cast_ms['anyhit']:.4f} ms each), "
                  f"texel fetch {fetch_t:.4f} s = {fetch_t / busy:.3f} over {n_fetch} launches, "
                  f"{fetch_ms:.4f} ms each; top: {top}")
-    return {"launches": launches, "busy_s": busy, "busy_share": busy / frame_s,
+    return {"launches": launches, "busy_s": busy, "busy_share": busy / run_s,
             "cluster_s": cluster_t, "cluster_share": cluster_t / busy, "fetch_s": fetch_t,
             "fetch_launches": n_fetch, "fetch_ms_per_launch": fetch_ms, "cast_ms": cast_ms}
 

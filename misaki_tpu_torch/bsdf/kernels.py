@@ -140,20 +140,29 @@ def material_params(scene, ids, uv, wavelengths, duv=None):
     sample/eval/pdf for the bounce. `duv` (the primary hit's texture
     footprint; zeros on bounce hits) selects the bitmap mip level. Groups of
     parameters that no kind of the scene reads are zeros (or None), as in
-    misaki_tpu."""
+    misaki_tpu.
+
+    Roughness and the Disney slots carry gradients only under
+    `scene.diff_mode` (misaki_tpu/bsdf/kernels.py:136-161): outside it they
+    are detached, and in it `sample_bsdf` samples with detached alpha and
+    recomputes the rough lobes' weight (misaki_tpu_torch.diff)."""
     kinds = scene.bsdf_kinds
+    diff = scene.diff_mode
     has = _kind_groups(kinds)
     L = ids.shape[0]
     dev = wavelengths.device
     zero_spec = torch.zeros((4, L), device=dev)
-    cols = scene.materials.params[:, ids.to(torch.int64)]   # (N_MAT_COLS, L)
+    cols = _MaterialColumns.apply(scene.materials.params, ids.to(torch.int64))  # (N_MAT_COLS, L)
     kind = cols[MC_KIND].to(torch.int32)
 
     def spec(base):
         return spectral_slot(scene, cols, base, uv, wavelengths, duv)
 
+    def attach(x):
+        return x if diff else x.detach()
+
     def alpha(base):
-        return microfacet.clamp_alpha(scalar_slot(scene, cols, base, uv, duv))
+        return attach(microfacet.clamp_alpha(scalar_slot(scene, cols, base, uv, duv)))
 
     def rgb(base):
         return (cols[base], cols[base + 1], cols[base + 2])
@@ -162,7 +171,8 @@ def material_params(scene, ids, uv, wavelengths, duv=None):
     ds_spec0 = ds_sheen = zero_spec
     reflectance = spec(MC_REFL) if has["disney"] or has["reflectance"] else zero_spec
     if has["disney"]:
-        disney = {name: scalar_slot(scene, cols, base, uv, duv) for name, base in _DISNEY_SLOTS}
+        disney = {name: attach(scalar_slot(scene, cols, base, uv, duv))
+                  for name, base in _DISNEY_SLOTS}
         # spectral tint = base colour / its CIE-Y luminance at the hero
         # wavelengths (Burley's c_tint = rgb / lum); c_spec0 =
         # lerp(0.08 * specular * lerp(1, tint, spec_tint), base, metallic)
@@ -192,6 +202,7 @@ def material_params(scene, ids, uv, wavelengths, duv=None):
         else zero_spec,
         "k_spec": rgb_to_spectral(rgb(MC_K_RGB), wavelengths) if has["conductor"] else zero_spec,
         "smooth": is_smooth_kind(kind),
+        "diff": diff,
         # roughplastic (zeros on other rows)
         "ssw": cols[MC_SSW],
         "fdr": cols[MC_FDR],
@@ -203,6 +214,36 @@ def material_params(scene, ids, uv, wavelengths, duv=None):
         "ds_spec0": ds_spec0,
         "ds_sheen": ds_sheen,
     }
+
+
+class _MaterialColumns(torch.autograd.Function):
+    """params[:, ids]: every lane's material column. Its backward sums the
+    lanes' gradients per material as one matmul with the lanes' one-hot
+    (L, B) rows, the transpose of misaki_tpu's one-hot fetch. A scatter
+    (advanced indexing's or index_add_'s) serialises the millions of lanes
+    that share each of a scene's few materials: it took most of a cbox
+    gradient step on an H100 (chip_smoke.py phase 15's profiled step)."""
+
+    @staticmethod
+    def forward(ctx, params, ids):
+        ctx.save_for_backward(ids)
+        ctx.n_materials = params.shape[1]
+        return torch.index_select(params, 1, ids)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (ids,) = ctx.saved_tensors
+        onehot = torch.zeros((ids.shape[0], ctx.n_materials), dtype=grad.dtype,
+                             device=grad.device)
+        onehot.scatter_(1, ids[:, None], 1.0)
+        # full float32 products whatever the process allows: TF32 would
+        # round every lane's gradient to 10 bits of mantissa
+        allow = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            return grad @ onehot, None
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = allow
 
 
 def _flip_z(v, flip):
@@ -662,8 +703,13 @@ def sample_bsdf(p, wi, u1, u2):
         choose_null = mask & (u1 >= op_prob)
         u1 = torch.where(mask, torch.clamp(u1 / op_prob, max=1.0 - 1e-7), u1)
 
+    # diff_mode's detached-sampling estimator (misaki_tpu/bsdf/kernels.py:
+    # 767-773): directions and pdfs come from detached alpha; the rough
+    # lobes' weight is recomputed below
+    p_s = dict(p, alpha_u=p["alpha_u"].detach(), alpha_v=p["alpha_v"].detach()) \
+        if p["diff"] else p
     # the compiler's kinds always hold at least one model
-    cases = [(kv, fn(p, wi_f, u1, u2)) for kv, fn in _SAMPLE if kv in p["kinds"]]
+    cases = [(kv, fn(p_s, wi_f, u1, u2)) for kv, fn in _SAMPLE if kv in p["kinds"]]
 
     def select(field, out, expand=False):
         for kval, r in cases:
@@ -682,6 +728,18 @@ def sample_bsdf(p, wi, u1, u2):
 
     delta = (kind == BSDF_DIELECTRIC) | (kind == BSDF_CONDUCTOR) | (kind == BSDF_NULL)
     null = kind == BSDF_NULL
+    if p["diff"]:
+        # the attached weight at the detached sample for the rough lobes,
+        # f_attached(wo_detached) / pdf_detached (misaki_tpu/bsdf/kernels.py:
+        # 818-832); delta lobes keep their closed forms. The mask wrapper is
+        # stripped for the recompute: eval_bsdf multiplies mask lanes by the
+        # opacity, which the mask branch below applies once more
+        wo_det = tuple(c.detach() for c in wo)
+        pdf_det = pdf.detach()
+        f_att = eval_bsdf(dict(p, mask=None) if mask is not None else p, wi, wo_det)
+        w_att = f_att / torch.clamp(pdf_det, min=_TINY)[None, :]
+        rough = (kind == BSDF_ROUGH_CONDUCTOR) | (kind == BSDF_ROUGH_DIELECTRIC)
+        weight = torch.where((rough & (pdf_det > 0.0))[None, :], w_att, weight)
     if mask is not None:
         # the null lobe, and the nested lobe reweighted by opacity / prob.
         # The reference's nested branch omits the 1 / prob (mask.cpp:44-47),

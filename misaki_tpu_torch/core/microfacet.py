@@ -27,8 +27,18 @@ def eval_ggx(mv, alpha_u, alpha_v):
     cos_theta2 = torch.clamp(mz * mz, min=1e-20)
     beckmann_exp = (mx * mx / (alpha_u * alpha_u) + my * my / (alpha_v * alpha_v)) / cos_theta2
     root = (1.0 + beckmann_exp) * cos_theta2
-    d = 1.0 / (m.Pi * alpha_u * alpha_v * root * root)
+    denom = m.Pi * alpha_u * alpha_v * root * root
+    d = 1.0 / denom
+    d = torch.where(_tame(d), 1.0 / torch.where(_tame(d), denom, 1.0), d.detach())
     return torch.where((mz > 0.0) & (d * mz > 1e-20), d, 0.0)
+
+
+def _tame(x):
+    """Where a reciprocal x = 1 / y keeps a finite gradient: its derivative
+    -x^2 overflows past 1e19, and times the zero cotangent of a lane that a
+    later where drops it would give NaN. Elsewhere the value is kept
+    detached (the double-where of misaki_tpu/render/ppm.py:371-373)."""
+    return torch.abs(x) < 1e19
 
 
 def pdf_ggx(mv, alpha_u, alpha_v):

@@ -15,11 +15,14 @@ _CONSTS = {}
 
 
 def const(array, device):
-    """A static numpy table as a float32 tensor on `device` (cached)."""
+    """A static numpy table as a float32 tensor on `device` (cached). Made
+    outside inference mode, so that a table first asked for by a frame under
+    `torch.inference_mode` still serves a later render under autograd."""
     key = (id(array), str(device))
     hit = _CONSTS.get(key)
     if hit is None or hit[0] is not array:
-        hit = (array, torch.as_tensor(np.asarray(array, np.float32), device=device))
+        with torch.inference_mode(False):
+            hit = (array, torch.as_tensor(np.asarray(array, np.float32), device=device))
         _CONSTS[key] = hit
     return hit[1]
 
@@ -48,7 +51,10 @@ def hat_eval_multi(tables, t):
     out = []
     for tab in tables:
         tab = _as_table(tab, t.device)
-        out.append(tab[i0] * w0 + tab[i1] * w1)
+        # index_select, whose backward is an index_add_: advanced indexing's
+        # accumulating index_put adds each bin's duplicates in turn
+        a, b = (tab.index_select(0, i.reshape(-1)).view(i.shape) for i in (i0, i1))
+        out.append(a * w0 + b * w1)
     return out
 
 

@@ -1,4 +1,4 @@
-// Weighted 4-tap texel fetch for Hopper (sm_90a).
+// Weighted 4-tap texel fetch for Hopper (sm_90a), and its backward.
 //
 // Replaces the Pallas TPU kernel of misaki_tpu/render/paged_fetch.py:55
 // `_fetch_kernel` (called by `paged_fetch`). The Pallas kernel's sort, pages,
@@ -111,7 +111,102 @@ __global__ void __launch_bounds__(kBlock)
   for (int c = 0; c < 3; ++c) __stcs(out + c * L + l, acc[c]);
 }
 
+// The backward of the fetch: the gradient of the table,
+//     grad_table[idx4[k, l], c] += w4[k, l] * grad_out[c, l]
+// for each live tap (the forward's rule: w != 0 and 0 <= idx < N); dead taps
+// add nothing. grad_table (N, 3) is float64, zeroed by the caller, who
+// rounds it to float32 once. The JAX package has no backward kernel (its
+// gradient transposes the one-hot matmuls of misaki_tpu/core/table.py:
+// 26-58); the plain twin is fetch4_backward_plain in render/texel_fetch.py.
+//
+// What bounds it: the stream of 44 B per lane (ids, weights, grad_out), read
+// once, evict-first as in the forward, and a read-modify-write of each
+// distinct live texel in L2. Neighbouring lanes hit the same texels: a
+// frame's lanes are a pixel's samples in a row, so a warp's 32 lanes are
+// one pixel's and fetch one or two bilinear quads; a coarse mip texel is
+// every lane's; the sun's few envmap texels take most NEE taps. Atomics on
+// one address serialise in L2, so the contention, not bytes, is what costs.
+//
+// What the design does about it: one thread per lane; for each tap k the
+// warp groups its lanes by texel id (__match_any_sync), sums each group's
+// products in float64 in a tree of shuffles (log2 of the largest group's
+// size steps; none where every id differs), and the group's lowest lane
+// alone adds the sums, one atomicAdd per channel. Its value is unused, so it
+// compiles to a reduction (RED.ADD.F64) that does not wait for the old
+// value. Each product is rounded to float32 (-fmad=false, nothing to fuse
+// anyway) and summed in float64: the order of the atomic sums varies from
+// run to run, and two orders of a float32 sum of a coarse mip texel's 10^5
+// terms differ by about the twin's tolerance (5e-3 at a scale of 678 on
+// chip_smoke.py's bitmap_camera_mips taps, against 7e-3 allowed); in
+// float64 they agree after the one rounding.
+
+// Adds to x[] the x[] of every lane of the warp in this lane's group
+// `peers` (from __match_any_sync) into the group's lowest lane, in a tree:
+// in each step a lane adds the partial sum of the next remaining peer above
+// it, and the peers of odd rank drop out. Every lane of the warp calls it.
+__device__ __forceinline__ void sum_peers(unsigned peers, double x[3]) {
+  const int lane = threadIdx.x & 31;
+  int rank = __popc(peers & ((1u << lane) - 1u));
+  unsigned above = peers & (0xfffffffeu << lane);
+  while (__any_sync(0xffffffffu, above != 0u)) {
+    const int next = __ffs(above);  // 1 + the next peer's lane, 0 if none
+    const int src = next > 0 ? next - 1 : lane;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      const double t = __shfl_sync(0xffffffffu, x[c], src);
+      if (next > 0) x[c] += t;
+    }
+    above &= ~__ballot_sync(0xffffffffu, rank & 1);
+    rank >>= 1;
+  }
+}
+
+__global__ void __launch_bounds__(kBlock)
+    fetch4_backward_kernel(const int* __restrict__ idx4, const float* __restrict__ w4,
+                           const float* __restrict__ grad_out, long long L, long long n,
+                           double* __restrict__ grad_table) {
+  const long long l = (long long)blockIdx.x * kBlock + threadIdx.x;
+  const bool in = l < L;  // lanes past the end take part in the warp's votes
+  float g[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) g[c] = in ? __ldcs(grad_out + c * L + l) : 0.0f;
+  int id[4];
+  float w[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    id[k] = in ? __ldcs(idx4 + k * L + l) : -1;
+    w[k] = in ? __ldcs(w4 + k * L + l) : 0.0f;
+  }
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const bool live = w[k] != 0.0f && id[k] >= 0 && (long long)id[k] < n;
+    // a dead tap is a group of its own (a negative key no id takes)
+    const int key = live ? id[k] : -1 - (int)(threadIdx.x & 31);
+    const unsigned peers = __match_any_sync(0xffffffffu, key);
+    double x[3];
+#pragma unroll
+    for (int c = 0; c < 3; ++c) x[c] = live ? (double)(w[k] * g[c]) : 0.0;
+    sum_peers(peers, x);
+    if (live && (threadIdx.x & 31) == __ffs(peers) - 1) {
+      double* dst = grad_table + 3LL * id[k];
+#pragma unroll
+      for (int c = 0; c < 3; ++c) atomicAdd(dst + c, x[c]);
+    }
+  }
+}
+
 }  // namespace
+
+extern "C" int fetch4_backward_launch(const int* idx4, const float* w4, const float* grad_out,
+                                      long long L, long long n_texels, double* grad_table,
+                                      void* stream) {
+  const long long blocks = (L + kBlock - 1) / kBlock;
+  if (L <= 0 || n_texels <= 0 || n_texels > 0x7FFFFFFFLL || blocks > 0x7FFFFFFFLL)
+    return (int)cudaErrorInvalidValue;
+  fetch4_backward_kernel<<<(unsigned)blocks, kBlock, 0, (cudaStream_t)stream>>>(
+      idx4, w4, grad_out, L, n_texels, grad_table);
+  return (int)cudaGetLastError();
+}
 
 extern "C" int fetch4_launch(const float* table, long long n_texels, const int* idx4,
                              const float* w4, long long L, float* out, void* stream) {

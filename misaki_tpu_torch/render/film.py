@@ -101,7 +101,9 @@ def develop(film):
     xyz = film[..., 0:3]
     alpha = film[..., 3]
     weight = film[..., 4]
-    inv_w = torch.where(weight != 0.0, 1.0 / weight, 0.0)
+    # the inner where keeps 1 / 0 out of the gradient of unweighted pixels
+    has_w = weight != 0.0
+    inv_w = torch.where(has_w, 1.0 / torch.where(has_w, weight, 1.0), 0.0)
     rgb = spec.xyz_to_srgb_image(xyz) * inv_w[..., None]
     return rgb, alpha * inv_w
 

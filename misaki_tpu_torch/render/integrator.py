@@ -98,7 +98,9 @@ def sample_path(scene, ray, rng_state, depth_cap=DEFAULT_MAX_DEPTH_CAP):
         wo_nee = frame.to_local(si["sh"], ds["d"])
         f_nee = bsdf.eval_bsdf(p, si["wi"], wo_nee)
         pdf_nee_bsdf = bsdf.pdf_bsdf(p, si["wi"], wo_nee)
-        mis_w = torch.where(ds["delta"], 1.0, m.mis_power2(ds["pdf"], pdf_nee_bsdf))
+        # detached sampling: MIS weights are pdf ratios, their gradient is
+        # stopped (misaki_tpu/render/integrator.py:127-129)
+        mis_w = torch.where(ds["delta"], 1.0, m.mis_power2(ds["pdf"], pdf_nee_bsdf)).detach()
         contrib = throughput * ds["spec"] * f_nee * mis_w[None, :]
         take = nee_possible & ~occluded
         result = result + torch.where(take[None, :], contrib, 0.0)
@@ -138,7 +140,7 @@ def sample_path(scene, ray, rng_state, depth_cap=DEFAULT_MAX_DEPTH_CAP):
         else:
             hit_emitter = hit_area
         em_pdf = torch.where(bs["delta"], 0.0, em_pdf)
-        mis_b = m.mis_power2(bs["pdf"], em_pdf)
+        mis_b = m.mis_power2(bs["pdf"], em_pdf).detach()
         add = throughput * value * mis_b[None, :]
         result = result + torch.where((active & hit_emitter)[None, :], add, 0.0)
 
@@ -147,7 +149,7 @@ def sample_path(scene, ray, rng_state, depth_cap=DEFAULT_MAX_DEPTH_CAP):
 
         # -------- Russian roulette (path.cpp:116-122) --------
         if depth + 1 >= scene.rr_depth:
-            q = torch.clamp(throughput.amax(dim=0) * eta * eta, max=0.95)
+            q = torch.clamp(throughput.amax(dim=0) * eta * eta, max=0.95).detach()
             active = active & ~(u_rr >= q)
             throughput = torch.where(active[None, :],
                                      throughput / torch.clamp(q, min=1e-8)[None, :],

@@ -12,6 +12,19 @@ On a CUDA tensor `fetch4` launches `csrc/texel_fetch.cu`; on a CPU tensor it
 takes the plain twin `fetch4_plain`, the kernel's oracle. Both add the taps
 in the order k = 0..3, each product rounded before the sum, so they agree
 bit for bit.
+
+The fetch is differentiable (`Fetch4`). Its backward scatters the output's
+gradient into the table's,
+
+    grad_table[idx4[k, l], c] += w4[k, l] * grad_out[c, l]   (live taps),
+
+through `fetch4_backward`: on CUDA the kernel `fetch4_backward_kernel` of
+the same source, on the CPU the plain twin `fetch4_backward_plain`. Both
+round each product to float32 and sum in float64, then round once; the
+kernel adds with atomics in an order that varies from run to run, which
+the float64 sums keep well below float32's rounding. The JAX package has
+no backward kernel: its gradients take the one-hot fetch
+(misaki_tpu/render/textures.py:49-72).
 """
 
 import ctypes
@@ -22,9 +35,10 @@ from misaki_tpu_torch.utils import cuda_build
 
 SRC = cuda_build.CSRC / "texel_fetch.cu"
 
-# Launch count of the CUDA kernel: `fetch4` adds one where it launches it,
-# and nowhere else.
+# Launch counts of the CUDA kernels: `_fetch4` and `fetch4_backward`
+# add one where they launch theirs, and nowhere else.
 fetch_launches = 0
+fetch_bwd_launches = 0
 
 
 def fetch4_plain(table, idx4, w4):
@@ -41,49 +55,139 @@ def fetch4_plain(table, idx4, w4):
     return acc.contiguous()
 
 
+def _live(idx4, w4, n):
+    idx = idx4.to(torch.int64)
+    return idx, (w4 != 0.0) & (idx >= 0) & (idx < n)
+
+
+def fetch4_backward_plain(idx4, w4, grad_out, n):
+    """Plain PyTorch twin of the backward kernel: the (n, 3) float32
+    gradient of the table. Each live tap's product w4[k, l] * grad_out[c, l]
+    is rounded to float32, the products are summed in float64 by
+    `index_add_` in tap order k = 0..3, and the sums rounded to float32."""
+    idx, live = _live(idx4, w4, n)
+    grad = torch.zeros((n, 3), dtype=torch.float64, device=grad_out.device)
+    for k in range(4):
+        sel = live[k]
+        grad.index_add_(0, idx[k][sel], (grad_out * w4[k][None, :]).T[sel].double())
+    return grad.float()
+
+
 def build():
     """Compile csrc/texel_fetch.cu with nvcc for sm_90a (once per source
     hash) and load it. Returns the ctypes library."""
     p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     return cuda_build.load_library(SRC, {
         "fetch4_launch": ([p, i64, p, p, i64, p, p], i32),
+        "fetch4_backward_launch": ([p, p, p, i64, i64, p, p], i32),
     })
 
 
-def fetch4(table, idx4, w4):
-    """Weighted 4-tap fetch of the texel-major (N, 3) float32 `table` at
-    idx4 (4, L) int32 with weights w4 (4, L) float32 -> (3, L) float32.
-    CPU tensors take the plain twin; CUDA tensors launch the kernel."""
-    global fetch_launches
-    dev = table.device
-    for name, x, dt in (("table", table, torch.float32), ("idx4", idx4, torch.int32),
-                        ("w4", w4, torch.float32)):
+def _check(tensors, dev):
+    for name, x, dt in tensors:
         if x.device != dev:
-            raise ValueError(f"{name} is on {x.device}, table on {dev}")
+            raise ValueError(f"{name} is on {x.device}, expected {dev}")
         if x.dtype != dt:
             raise ValueError(f"{name} must be {dt}, got {x.dtype}")
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if table.dim() != 2 or table.shape[1] != 3 or not 0 < table.shape[0] < 2 ** 31:
-        raise ValueError(f"table must be (N, 3) with 0 < N < 2^31, got {tuple(table.shape)}")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"no texel-fetch kernel for device {dev}")
+
+
+def _check_taps(idx4, w4):
     if idx4.dim() != 2 or idx4.shape[0] != 4 or w4.shape != idx4.shape:
         raise ValueError(f"idx4 and w4 must both be (4, L), got {tuple(idx4.shape)} "
                          f"and {tuple(w4.shape)}")
-    if dev.type == "cpu":
+
+
+def _fetch4(table, idx4, w4):
+    """The forward: the plain twin on the CPU, the kernel on CUDA."""
+    global fetch_launches
+    if table.device.type == "cpu":
         return fetch4_plain(table, idx4, w4)
-    if dev.type != "cuda":
-        raise ValueError(f"no texel-fetch kernel for device {dev}")
     if table.data_ptr() % 16:
         raise ValueError("table must start on a 16-byte boundary (the kernel reads "
                          "bilinear rows as 16-byte spans)")
     L = idx4.shape[1]
-    out = torch.empty((3, L), dtype=torch.float32, device=dev)
+    out = torch.empty((3, L), dtype=torch.float32, device=table.device)
     if L == 0:
         return out
     lib = build()
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    stream = torch.cuda.current_stream(table.device).cuda_stream
     cuda_build.check_launch(lib.fetch4_launch(
         table.data_ptr(), table.shape[0], idx4.data_ptr(), w4.data_ptr(), L, out.data_ptr(),
         stream), "texel-fetch kernel")
     fetch_launches += 1
     return out
+
+
+def fetch4_backward(idx4, w4, grad_out, n):
+    """The gradient of the (n, 3) table of a fetch at idx4 / w4 (4, L)
+    whose output's gradient is grad_out (3, L) float32 -> (n, 3) float32.
+    CPU tensors take the plain twin; CUDA tensors launch the kernel."""
+    global fetch_bwd_launches
+    dev = grad_out.device
+    _check((("idx4", idx4, torch.int32), ("w4", w4, torch.float32),
+            ("grad_out", grad_out, torch.float32)), dev)
+    _check_taps(idx4, w4)
+    if grad_out.shape != (3, idx4.shape[1]):
+        raise ValueError(f"grad_out must be (3, L), got {tuple(grad_out.shape)}")
+    if not 0 < n < 2 ** 31:
+        raise ValueError(f"the table must have 0 < N < 2^31 texels, got {n}")
+    if dev.type == "cpu":
+        return fetch4_backward_plain(idx4, w4, grad_out, n)
+    # the kernel sums in float64; the gradient is that sum rounded once
+    grad = torch.zeros((n, 3), dtype=torch.float64, device=dev)
+    L = idx4.shape[1]
+    if L == 0:
+        return grad.float()
+    lib = build()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    cuda_build.check_launch(lib.fetch4_backward_launch(
+        idx4.data_ptr(), w4.data_ptr(), grad_out.data_ptr(), L, n, grad.data_ptr(), stream),
+        "texel-fetch backward kernel")
+    fetch_bwd_launches += 1
+    return grad.float()
+
+
+class Fetch4(torch.autograd.Function):
+    """The fetch with its gradient: the table's through `fetch4_backward`,
+    the weights' (where asked for) as sum_c grad_out[c, l] *
+    table[idx4[k, l], c] over the live taps in plain PyTorch. The ids have
+    none."""
+
+    @staticmethod
+    def forward(ctx, table, idx4, w4):
+        ctx.save_for_backward(table, idx4, w4)
+        return _fetch4(table, idx4, w4)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        table, idx4, w4 = ctx.saved_tensors
+        grad_out = grad_out.contiguous()
+        grad_table = grad_w4 = None
+        if ctx.needs_input_grad[0]:
+            grad_table = fetch4_backward(idx4, w4, grad_out, table.shape[0])
+        if ctx.needs_input_grad[2]:
+            idx, live = _live(idx4, w4, table.shape[0])
+            texels = table[torch.where(live, idx, 0)]                     # (4, L, 3)
+            grad_w4 = torch.where(live, (texels * grad_out.T[None]).sum(dim=2), 0.0)
+        return grad_table, None, grad_w4
+
+
+def fetch4(table, idx4, w4):
+    """Weighted 4-tap fetch of the texel-major (N, 3) float32 `table` at
+    idx4 (4, L) int32 with weights w4 (4, L) float32 -> (3, L) float32.
+    CPU tensors take the plain twin; CUDA tensors launch the kernel. Where
+    autograd records and the table or the weights require grad, the call
+    goes through `Fetch4`; otherwise (under `inference_mode` or
+    `no_grad`, or with constant inputs) straight to the forward."""
+    _check((("table", table, torch.float32), ("idx4", idx4, torch.int32),
+            ("w4", w4, torch.float32)), table.device)
+    if table.dim() != 2 or table.shape[1] != 3 or not 0 < table.shape[0] < 2 ** 31:
+        raise ValueError(f"table must be (N, 3) with 0 < N < 2^31, got {tuple(table.shape)}")
+    _check_taps(idx4, w4)
+    if torch.is_grad_enabled() and (table.requires_grad or w4.requires_grad):
+        return Fetch4.apply(table, idx4, w4)
+    return _fetch4(table, idx4, w4)

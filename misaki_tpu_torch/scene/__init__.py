@@ -68,5 +68,22 @@ def from_compiled(arrays, device="cuda"):
         aovs=tuple(arrays.aovs), aov_nested=arrays.aov_nested,
         direct_light_samples=arrays.direct_light_samples,
         direct_bsdf_samples=arrays.direct_bsdf_samples,
+        diff_mode=bool(getattr(arrays, "diff_mode", False)),
     )
     return scene.to(device)
+
+
+def leaves_from_jax(values):
+    """`misaki_tpu` parameter leaves {name: numpy array}, in its layout,
+    -> the same values in the port's layout (numpy): every leaf as it is but
+    `bitmaps`, whose (3, Npad) atlas becomes the texel-major (Npad, 3)
+    table, the transpose `from_compiled` takes."""
+    return {k: np.ascontiguousarray(np.asarray(v, np.float32).T) if k == "bitmaps"
+            else np.asarray(v) for k, v in values.items()}
+
+
+def grads_to_jax(grads):
+    """The port's leaf gradients {name: tensor} -> numpy arrays in
+    `misaki_tpu`'s layout (the inverse of `leaves_from_jax`)."""
+    out = {k: g.detach().cpu().numpy() for k, g in grads.items()}
+    return {k: np.ascontiguousarray(g.T) if k == "bitmaps" else g for k, g in out.items()}

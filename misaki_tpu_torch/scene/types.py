@@ -236,6 +236,10 @@ class CompiledScene(_Tables):
     aov_nested: str = "path"
     direct_light_samples: int = 1
     direct_bsdf_samples: int = 1
+    # differentiable rendering (misaki_tpu_torch.diff): microfacet alpha and
+    # the Disney slots carry gradients only when set; training flips it with
+    # scene.replace(diff_mode=True)
+    diff_mode: bool = False
     device: Any = field(default=torch.device("cpu"))
 
     def to(self, device):

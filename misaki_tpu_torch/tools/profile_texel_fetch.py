@@ -2,6 +2,7 @@
 split of a launch into its parts.
 
     python -m misaki_tpu_torch.tools.profile_texel_fetch [--reps N] [--out FILE]
+    python -m misaki_tpu_torch.tools.profile_texel_fetch --backward [--compare SRC ...]
 
 Cells, 2^20 lanes each, on the envlit scene at full size (a 2048x4096 RGB
 envmap, a 1024^2 bitmap with its mip chain):
@@ -28,9 +29,19 @@ that live taps touch, times 32, plus the streamed ids, weights and output),
 the plain twin's time and the library call `F.embedding_bag`'s time (never
 used by the port). The table goes to `--out` (default
 `chiprun_out/profile_texel_fetch.md`).
+
+`backward_case` does the same for the fetch's backward kernel on one set of
+taps (`profile_backward`: the first three cells): allclose to its
+`index_add_` twin, its time beside the twin's and the library call
+`index_add_`'s, and its bound. `--backward` times the backward kernel on
+those cells and on the taps of one envlit gradient (`gradient_taps`), beside
+each `--compare` source's (`profile_backward_versions`), into
+`chiprun_out/profile_texel_fetch_backward.md`.
 """
 
 import argparse
+import contextlib
+import ctypes
 from pathlib import Path
 
 import torch
@@ -39,9 +50,11 @@ import torch.nn.functional as F
 from misaki_tpu_torch.render import texel_fetch as tf
 from misaki_tpu_torch.tools.profile_cluster_frame import (HBM_BYTES_PER_S, bound_ms, device_ms,
                                                           smi_line)
+from misaki_tpu_torch.utils import cuda_build
 
 ROOT = Path(__file__).resolve().parents[2]
 DEFAULT_OUT = ROOT / "chiprun_out" / "profile_texel_fetch.md"
+BACKWARD_OUT = ROOT / "chiprun_out" / "profile_texel_fetch_backward.md"
 SCENE_BUILD = ROOT / "build" / "scenes" / "envlit"
 N_LANES = 1 << 20
 L2_TABLE_BYTES = 4 << 20
@@ -117,6 +130,127 @@ def embedding_bag_call(table, idx4, w4):
     return ids, w, lambda: F.embedding_bag(ids, table, per_sample_weights=w, mode="sum")
 
 
+BACKWARD_CELLS = ("env_random", "bitmap_camera_mips", "env_nee")
+
+
+def index_add_call(idx4, w4, grad_out, n):
+    """The library call computing the backward's sums: one `index_add_` of
+    every tap's w * grad_out (a dead tap: weight 0 on a clamped id) into a
+    zeroed (n, 3) table; may add in another order. Never used by the port."""
+    live = (w4 != 0.0) & (idx4 >= 0) & (idx4 < n)
+    ids = idx4.clamp(0, n - 1).long().reshape(-1)
+    vals = (torch.where(live, w4, 0.0)[:, None, :] * grad_out[None]).permute(0, 2, 1)
+    vals = vals.reshape(-1, 3).contiguous()
+    return lambda: torch.zeros((n, 3), device=grad_out.device).index_add_(0, ids, vals)
+
+
+def backward_bound(idx4, w4, n):
+    """The bound of one backward launch: (ms, "bytes" or "operations") with
+    ids, weights and grad_out read once (44 B a lane) and the (n, 3)
+    gradient written once (12 B a texel), 24 FP32 operations a lane; and,
+    beside it, the read-modify-write count of the atomics (44 B a lane and
+    24 B per distinct live texel) in ms; and the distinct live texels."""
+    L = idx4.shape[1]
+    texels = int(torch.unique(idx4[(w4 != 0.0) & (idx4 >= 0) & (idx4 < n)]).numel())
+    ms, by = bound_ms(L * STREAM_BYTES + n * 12, L * 24)
+    return ms, by, (L * STREAM_BYTES + texels * 24) / HBM_BYTES_PER_S * 1e3, texels
+
+
+def backward_case(idx4, w4, grad_out, n, reps=30, launch=None):
+    """The backward kernel (`fetch4_backward`, or `launch` with its
+    arguments) on one set of taps: against its plain twin with
+    allclose(rtol 1e-5, atol 1e-6 of the twin's largest magnitude) (atomics
+    add in another order), its time beside the twin's and `index_add_`'s,
+    and its bound. Returns the numbers."""
+    launch = launch or tf.fetch4_backward
+    want = tf.fetch4_backward_plain(idx4, w4, grad_out, n)
+    got = launch(idx4, w4, grad_out, n)
+    scale = want.abs().max().item()
+    lib = index_add_call(idx4, w4, grad_out, n)
+    bms, by, rmw_ms, texels = backward_bound(idx4, w4, n)
+    return {
+        "lanes": idx4.shape[1], "texels": n, "distinct_live_texels": texels,
+        "allclose": bool(torch.allclose(got, want, rtol=1e-5, atol=1e-6 * scale)),
+        "max_abs_err": (got - want).abs().max().item(), "scale": scale,
+        "ms": device_ms(lambda: launch(idx4, w4, grad_out, n), reps),
+        "plain_ms": device_ms(lambda: tf.fetch4_backward_plain(idx4, w4, grad_out, n), 5),
+        "index_add_ms": device_ms(lib, reps),
+        "index_add_allclose": bool(torch.allclose(lib(), want, rtol=1e-5, atol=1e-6 * scale)),
+        "bound_ms": bms, "bound_by": by, "rmw_bound_ms": rmw_ms}
+
+
+def profile_backward(scene, reps=30, seed=1, launch=None):
+    """`backward_case` on the cells BACKWARD_CELLS of `scene` at 2^20 lanes,
+    grad_out drawn from a seeded generator. Returns {cell: numbers}."""
+    cells = make_cells(scene)
+    gen = torch.Generator(device=scene.device).manual_seed(seed)
+    res = {}
+    for name in BACKWARD_CELLS:
+        table, idx4, w4 = cells[name]
+        grad_out = torch.randn((3, idx4.shape[1]), device=scene.device, generator=gen)
+        res[name] = backward_case(idx4, w4, grad_out, table.shape[0], reps, launch)
+    return res
+
+
+@contextlib.contextmanager
+def captured_backward():
+    """Inside it, every `fetch4_backward` call (Fetch4's backward) runs as
+    before and appends its (idx4, w4, grad_out, n) to the yielded list."""
+    taps, real = [], tf.fetch4_backward
+
+    def spy(idx4, w4, grad_out, n):
+        taps.append((idx4, w4, grad_out, n))
+        return real(idx4, w4, grad_out, n)
+
+    tf.fetch4_backward = spy
+    try:
+        yield taps
+    finally:
+        tf.fetch4_backward = real
+
+
+def gradient_taps(scene, names=("bitmaps", "env_rgb"), seed=0, depth_cap=4):
+    """The (idx4, w4, grad_out, n) of every backward launch of one
+    `image_grads` of the image mean over `names`: the shapes and the data
+    that a gradient step gives the kernel."""
+    from misaki_tpu_torch.diff.backprop import image_grads
+
+    with captured_backward() as taps:
+        image_grads(scene, names, lambda rgb: rgb.mean(), seed=seed, depth_cap=depth_cap)
+    return taps
+
+
+def profile_gradient_taps(taps, reps=10, launch=None):
+    """`backward_case` on each captured launch of `gradient_taps`, and their
+    sum: {"launches": [numbers], "allclose", "ms", "plain_ms",
+    "index_add_ms", "bound_ms" (sums over the launches), "bound_by" (the
+    largest bound's), "max_abs_err"}."""
+    each = [backward_case(*t, reps=reps, launch=launch) for t in taps]
+    total = {k: sum(c[k] for c in each)
+             for k in ("ms", "plain_ms", "index_add_ms", "bound_ms", "rmw_bound_ms")}
+    return {"launches": each, "allclose": all(c["allclose"] for c in each),
+            "max_abs_err": max(c["max_abs_err"] for c in each),
+            "bound_by": max(each, key=lambda c: c["bound_ms"])["bound_by"], **total}
+
+
+def source_backward(src):
+    """`fetch4_backward` through the `fetch4_backward_launch` of another
+    texel-fetch source (the same interface), for comparing two versions of
+    the kernel in one process."""
+    p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib = cuda_build.load_library(src, {"fetch4_backward_launch": ([p, p, p, i64, i64, p, p],
+                                                                   i32)})
+
+    def launch(idx4, w4, grad_out, n):
+        grad = torch.zeros((n, 3), dtype=torch.float64, device=grad_out.device)
+        cuda_build.check_launch(lib.fetch4_backward_launch(
+            idx4.data_ptr(), w4.data_ptr(), grad_out.data_ptr(), idx4.shape[1], n,
+            grad.data_ptr(), torch.cuda.current_stream().cuda_stream), str(src))
+        return grad.float()
+
+    return launch
+
+
 def profile(scene=None, reps=30, out=DEFAULT_OUT):
     """Profile the texel-fetch kernel on the cells of `scene` (default: the
     envlit scene at full size on cuda). Returns a dict with, per cell, its
@@ -126,10 +260,7 @@ def profile(scene=None, reps=30, out=DEFAULT_OUT):
     if not torch.cuda.is_available():
         raise RuntimeError("the texel-fetch profile needs a CUDA device")
     if scene is None:
-        from misaki_tpu_torch.scene.compiler import load_and_compile
-        from misaki_tpu_torch.scenes.envlit import assets
-
-        scene = load_and_compile(str(assets.prepared(SCENE_BUILD)), device="cuda")
+        scene = _envlit()
     cells = make_cells(scene)
     res = {"cells": {}, "equal": True}
     for name in CELLS:
@@ -183,12 +314,75 @@ def report(res, reps):
     return "\n".join(lines) + "\n"
 
 
+def _envlit(**kw):
+    from misaki_tpu_torch.scene.compiler import load_and_compile
+    from misaki_tpu_torch.scenes.envlit import assets
+
+    return load_and_compile(str(assets.prepared(SCENE_BUILD)), device="cuda", **kw)
+
+
+def profile_backward_versions(compare=(), reps=30, out=BACKWARD_OUT):
+    """The backward kernel of the port and the `fetch4_backward_launch` of
+    each `compare` source, in one process, on the BACKWARD_CELLS and on the
+    taps of one envlit gradient at its declared 256x256 x 64 spp (depth cap
+    4: a launch of 2^22 lanes per fetch of the frame), in the order port,
+    compare..., compare..., port. Writes a table to `out`; returns
+    {"runs": [(version, cells, gradient)], "card", "table"}."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("the texel-fetch profile needs a CUDA device")
+    compare = [Path(c) for c in compare]
+    cuda_build.compile_sources(list(dict.fromkeys([tf.SRC, *compare])))
+    scene = _envlit()
+    taps = gradient_taps(scene)
+    launches = {"port": None, **{str(c): source_backward(c) for c in compare}}
+    order = list(launches) + list(reversed(launches))
+    runs = [(v, profile_backward(scene, reps, launch=launches[v]),
+             profile_gradient_taps(taps, max(reps // 3, 5), launches[v])) for v in order]
+    card = f"{torch.cuda.get_device_name(0)} ({smi_line()})"
+    lines = [
+        "# Texel-fetch backward profile", "",
+        f"Card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}.",
+        "Device ms (CUDA events over launches enqueued behind a held stream), each "
+        "including the wrapper's float64 zeroing and rounding; cells of 2^20 lanes, and the "
+        f"{len(taps)} launches of one envlit gradient (sums over them).", "",
+        "| version | taps | lanes | distinct live texels | allclose | kernel ms | bound ms | "
+        "plain ms | index_add_ ms |",
+        "|---|---|---|---|---|---|---|---|---|"]
+    for v, cells, grad in runs:
+        for name, c in cells.items():
+            lines.append(f"| {v} | {name} | {c['lanes']} | {c['distinct_live_texels']} | "
+                         f"{c['allclose']} | {c['ms']:.4f} | {c['bound_ms']:.4f} | "
+                         f"{c['plain_ms']:.4f} | {c['index_add_ms']:.4f} |")
+        lanes = sum(c["lanes"] for c in grad["launches"])
+        texels = sum(c["distinct_live_texels"] for c in grad["launches"])
+        lines.append(f"| {v} | envlit gradient, {len(grad['launches'])} launches | {lanes} | "
+                     f"{texels} | {grad['allclose']} | {grad['ms']:.4f} | "
+                     f"{grad['bound_ms']:.4f} | {grad['plain_ms']:.4f} | "
+                     f"{grad['index_add_ms']:.4f} |")
+    out = Path(out)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text("\n".join(lines) + "\n")
+    return {"runs": runs, "card": card, "table": str(out)}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--reps", type=int, default=30)
-    ap.add_argument("--out", default=str(DEFAULT_OUT))
+    ap.add_argument("--out", default=None)
+    ap.add_argument("--backward", action="store_true",
+                    help="profile the backward kernel (profile_backward_versions)")
+    ap.add_argument("--compare", action="append", default=[],
+                    help="with --backward: another texel-fetch source whose "
+                         "fetch4_backward_launch is timed on the same taps")
     args = ap.parse_args()
-    res = profile(reps=args.reps, out=args.out)
+    if args.backward:
+        res = profile_backward_versions(args.compare, args.reps, args.out or BACKWARD_OUT)
+        print(Path(res["table"]).read_text(), end="")
+        if not all(cells[c]["allclose"] for _, cells, _ in res["runs"] for c in cells) or \
+                not all(grad["allclose"] for _, _, grad in res["runs"]):
+            raise SystemExit("a texel-fetch backward launch differs from the plain twin")
+        return
+    res = profile(reps=args.reps, out=args.out or DEFAULT_OUT)
     print(Path(res["table"]).read_text(), end="")
     if not res["equal"]:
         raise SystemExit("a texel-fetch launch differs from the plain twin")

@@ -5,9 +5,15 @@ Material rows (plain sigmoid spectra, roughness values, IORs, the plastic
 and Disney parameters, mask opacities) and directions and samples are made
 with numpy from a seed; both packages' `material_params` load them from the
 same table and their `eval_bsdf`, `pdf_bsdf` and `sample_bsdf` run on the
-same lanes. Tolerance: rtol 1e-5, atol 1e-6 on values, pdfs, weights and
-`wo`; `valid`, `delta`, `null` and `eta` equal. Two kinds of lane are
-exempt, and each case prints how many:
+same lanes, seeded by a stable hash of the case's name (the same inputs in
+every process). Tolerance: rtol 1e-5, atol 1e-6 on values, pdfs, weights
+and `wo`; `valid`, `delta`, `null` and `eta` equal. A sampled lane where
+misaki_tpu's sample is its own `pdf_bsdf` and `eval_bsdf / pdf_bsdf` at its
+`wo` holds the port's pdf and weight to those at the port's own `wo`:
+comparing both samples' pdfs would feed a last-bit difference of `wo`
+through a Jacobian. Other lanes (delta lobes, the rough dielectric's
+scaled-alpha sampler) hold them to misaki_tpu's sample. Two kinds of lane
+are exempt, and each case prints how many:
 
   * a lane within 1e-6 of a branch threshold (u1 against the Fresnel term
     or another lobe probability; s1 at the GGX sampler's tan poles 0.25 and
@@ -23,6 +29,7 @@ exempt, and each case prints how many:
     torch's own float32 sqrt is not, and exempted up to 0.5% of the lanes.
 """
 
+import zlib
 from types import SimpleNamespace
 
 import jax.numpy as jnp
@@ -312,9 +319,14 @@ CASES = {
 }
 
 
+def _case_seed(name):
+    """The numpy seed of a case's inputs, the same in every process."""
+    return zlib.crc32(name.encode())
+
+
 def _case_inputs(name):
     kinds, opts, inside = CASES[name]
-    rs = np.random.default_rng(abs(hash(name)) % (2 ** 32))
+    rs = np.random.default_rng(_case_seed(name))
     rows = []
     for i in range(N_ROWS):
         o = dict(opts)
@@ -453,7 +465,24 @@ def test_bsdf_kind_parity(name, capsys):
     for k in ("eta", "valid", "delta", "null"):
         bad |= _lane_mismatch(jb[k], pb[k], rtol=0.0, atol=0.0)
     loose |= bad
-    for want, got in ((jb["pdf"], pb["pdf"]), (jb["weight"], pb["weight"]),
+    # pdf and weight: where misaki_tpu's own sample is its pdf_bsdf and
+    # eval_bsdf / pdf_bsdf at its own wo, those at the port's wo; elsewhere
+    # (delta and invalid lanes, the rough dielectric's scaled-alpha sampler)
+    # misaki_tpu's sample
+    def at(wo_):
+        wo_ = tuple(jnp.asarray(np.asarray(c)) for c in wo_)
+        pdf_ = np.asarray(jbsdf.pdf_bsdf(jp, jwi, wo_), np.float64)
+        f_ = np.asarray(jbsdf.eval_bsdf(jp, jwi, wo_), np.float64)
+        return pdf_, f_ / np.where(pdf_ > 0.0, pdf_, 1.0)[None, :]
+
+    j_pdf, j_w = np.asarray(jb["pdf"]), np.asarray(jb["weight"])
+    own_pdf, own_w = at(jb["wo"])
+    consistent = (np.asarray(jb["valid"]) & ~np.asarray(jb["delta"]) & (j_pdf > 0.0)
+                  & ~_lane_mismatch(j_pdf, own_pdf) & ~_lane_mismatch(j_w, own_w))
+    pdf_at, w_at = at(n(c) for c in pb["wo"])
+    want_pdf = np.where(consistent, pdf_at, j_pdf)
+    want_w = np.where(consistent[None, :], w_at, j_w)
+    for want, got in ((want_pdf, pb["pdf"]), (want_w, pb["weight"]),
                       (np.stack([np.asarray(c) for c in jb["wo"]]), torch.stack(pb["wo"]))):
         b, lo = _lane_mismatch2(want, got)
         bad, loose = bad | b, loose | lo

@@ -13,7 +13,9 @@ Bounds: face id equal on >= 99.9% of rays, t to rtol 1e-5 and the face row
 exact where the face ids agree, occlusion equal on >= 99.99% of rays. The
 kernels are built without fused multiply-add, so in practice they agree
 bit for bit. The texel fetch adds the same rounded products in the same
-order as its twin: equal to the bit.
+order as its twin: equal to the bit. The texel fetch's backward adds with
+atomics in an order that varies from run to run: held to its twin with
+allclose(rtol 1e-5, atol 1e-6 of the twin's largest magnitude).
 """
 
 from dataclasses import replace
@@ -331,6 +333,100 @@ def test_fetch4_raises_on_misaligned_table(head):
     with pytest.raises(ValueError, match="16-byte"):
         tf.fetch4(moved, idx, w)
     assert tf.fetch_launches == before
+
+
+def _backward_case(case, L=1 << 20, N=1 << 20):
+    """(idx4, w4, grad_out, N) of one backward contention case: random taps
+    into N texels (a fifth dead), camera-coherent bilinear quads (a few
+    lanes per texel), or every live tap on one texel (the worst
+    contention), or taps on five texels with a tenth of the ids out of
+    range, over 2^20 + 13 lanes (every pattern of groups in a warp, dead
+    taps among them, a last warp cut short). The one-texel case sums 3.4 M
+    terms into one address, where two float32 summation orders differ by
+    about sqrt(n) ulps of the partial sums (~1e-4 relative); in it and in
+    the five-texel case the weights and gradients are halves, so every
+    product and every partial sum is exact in float32 (below 2^22 in
+    quarters) and any order of the adds gives the same bits."""
+    g = torch.Generator(device="cuda").manual_seed(len(case))
+    if case == "warp_groups":
+        L += 13
+    _, idx, w = _fetch_case(N, L, 7)
+    if case == "coherent":
+        side = 1 << 9
+        lane = torch.arange(L, device="cuda")
+        x = (lane % 2048).float() / 2048 * side
+        y = (lane // 2048).float() / (L // 2048) * side
+        j, i = x.floor().to(torch.int32), y.floor().to(torch.int32)
+        a = i * side + j
+        idx = torch.stack([a, a + 1, a + side, a + side + 1]).contiguous()
+        w = torch.rand((4, L), device="cuda", generator=g)
+    grad_out = torch.randn((3, L), device="cuda", generator=g)
+    if case == "warp_groups":
+        idx = torch.randint(0, 5, (4, L), device="cuda", generator=g, dtype=torch.int32)
+        out = torch.rand((4, L), device="cuda", generator=g) < 0.1
+        idx = torch.where(out, -1, idx).contiguous()
+    if case in ("one_texel", "warp_groups"):
+        if case == "one_texel":
+            idx = torch.where(w != 0.0, 3, idx).contiguous()
+        w = torch.where(w != 0.0, 0.5 + 0.5 * (w > 0.5).float(), 0.0).contiguous()
+        grad_out = 0.5 * torch.randint(-1, 2, (3, L), device="cuda", generator=g).float()
+    return idx, w, grad_out, N
+
+
+@pytest.mark.parametrize("case", ["random", "coherent", "one_texel", "warp_groups"])
+def test_fetch4_backward_matches_plain(case):
+    """The backward kernel against its index_add_ twin at 2^20 lanes: equal
+    to rounding (atomics add in another order from run to run)."""
+    idx, w, grad_out, N = _backward_case(case)
+    before = tf.fetch_bwd_launches
+    got = tf.fetch4_backward(idx, w, grad_out, N)
+    torch.cuda.synchronize()
+    assert tf.fetch_bwd_launches == before + 1
+    want = tf.fetch4_backward_plain(idx, w, grad_out, N)
+    assert got.shape == (N, 3)
+    assert torch.allclose(got, want, rtol=1e-5, atol=1e-6 * want.abs().max().item())
+    if case in ("one_texel", "warp_groups"):
+        # exact data: every update landed, in whatever order
+        assert torch.equal(got, want)
+    if case == "one_texel":
+        assert (got[3] != 0).all() and (got[:3] == 0).all() and (got[4:] == 0).all()
+    if case == "warp_groups":
+        assert (got[:5] != 0).any(dim=1).all() and (got[5:] == 0).all()
+
+
+def test_fetch4_autograd_on_the_card():
+    """Fetch4 on CUDA tensors: the forward launches the forward kernel and
+    equals the twin to the bit; backward launches the backward kernel once
+    and gives the twin's gradients (the weights' in plain PyTorch)."""
+    table, idx, w = _fetch_case(5000, 1 << 16, 3)
+    table = table.requires_grad_()
+    w = w.requires_grad_()
+    f0, b0 = tf.fetch_launches, tf.fetch_bwd_launches
+    out = tf.fetch4(table, idx, w)
+    assert tf.fetch_launches == f0 + 1
+    assert torch.equal(out.detach(), tf.fetch4_plain(table.detach(), idx, w.detach()))
+    g_out = torch.randn_like(out)
+    out.backward(g_out)
+    assert tf.fetch_bwd_launches == b0 + 1
+    t2, w2 = table.detach().clone().requires_grad_(), w.detach().clone().requires_grad_()
+    tf.fetch4_plain(t2, idx, w2).backward(g_out)
+    assert torch.allclose(table.grad, t2.grad, rtol=1e-5, atol=1e-6 * t2.grad.abs().max().item())
+    assert torch.allclose(w.grad, w2.grad, rtol=1e-5, atol=1e-6)
+
+
+def test_no_backward_launch_in_an_inference_frame(small_envlit):
+    """A frame under render()'s inference_mode launches the forward fetch
+    and never the backward, even with leaves that require grad."""
+    from misaki_tpu_torch.diff import get_leaves, replace_leaves
+
+    leaves = {k: v.detach().clone().requires_grad_()
+              for k, v in get_leaves(small_envlit, ("bitmaps", "env_rgb")).items()}
+    scene = replace_leaves(small_envlit, leaves).replace(spp=1)
+    f0, b0 = tf.fetch_launches, tf.fetch_bwd_launches
+    driver.render(scene, depth_cap=2, progress=lambda d, t: None)
+    torch.cuda.synchronize()
+    assert tf.fetch_launches > f0
+    assert tf.fetch_bwd_launches == b0
 
 
 def test_lever_profile_variants_match_plain(small_envlit, tmp_path):
