@@ -84,11 +84,12 @@ Phases, one line each; any failure exits non-zero:
      comes from (the plain twin's sums with the taps or the output
      gradients of one device and the rest of the other's); (c) the fetch's
      backward kernel against its index_add_ twin (allclose rtol 1e-5, atol
-     1e-6 of the largest magnitude) on the taps of every backward launch of
-     that gradient (2^22 lanes each) and at 2^20 lanes on phase 6's
-     env_random, bitmap_camera_mips and env_nee taps, beside the library
-     call index_add_; (d) the envlit gradient's peak memory and time by
-     chunk size;
+     1e-6 of the largest magnitude, in each of 10 calls: atomic order varies
+     from run to run) on the taps of every backward launch of that gradient
+     (2^22 lanes each) and at 2^20 lanes on phase 6's env_random,
+     bitmap_camera_mips and env_nee taps, beside its scratch's zeroing and
+     finalize alone and the library call index_add_; (d) the envlit
+     gradient's peak memory and time by chunk size;
 then the port's bench (python -m misaki_tpu_torch.tools.bench), its lines
 printed with a "[bench]" prefix. Timed and profiled frames pass the bench's
 `quiet` progress callback, so the driver's progress log stays out of them.
@@ -807,22 +808,33 @@ def phase_envlit_grad(envlit_xml, envlit):
     main_taps = ptf.gradient_taps(envlit, names, depth_cap=BENCH_DEPTH)
     on_path = ptf.profile_gradient_taps(main_taps, reps=10)
     del main_taps
+    # (allclose in each of ptf.CHECKS calls per set of taps: atomic order
+    # varies from run to run; kernel_ms includes the scratch's zeroing and
+    # the finalize, which writes the gradient, and finalize_ms is that part:
+    # the call less its reduction kernel alone)
     for k, c in enumerate(on_path["launches"]):
         phase("15", f"backward launch {k} of the gradient: lanes={c['lanes']} "
                     f"texels={c['texels']} distinct_live_texels={c['distinct_live_texels']} "
-                    f"allclose={c['allclose']} max_abs_err={c['max_abs_err']:.3e} (scale "
-                    f"{c['scale']:.3e}) kernel_ms={c['ms']:.4f} bound_ms={c['bound_ms']:.4f} "
+                    f"allclose={c['allclose']} (x{c['checks']}) "
+                    f"max_abs_err={c['max_abs_err']:.3e} (scale {c['scale']:.3e}, "
+                    f"tolerance used {c['tolerance_used']:.3f}) "
+                    f"kernel_ms={c['ms']:.4f} finalize_ms={c['finalize_ms']:.4f} "
+                    f"bound_ms={c['bound_ms']:.4f} share={c['bound_ms'] / c['ms']:.3f} "
                     f"plain_ms={c['plain_ms']:.4f} index_add_ms={c['index_add_ms']:.4f}")
     phase("15", f"backward, the gradient's {len(on_path['launches'])} launches: kernel "
-                f"{on_path['ms']:.4f} ms, bound {on_path['bound_ms']:.4f} ms "
-                f"({on_path['bound_by']}), plain {on_path['plain_ms']:.4f} ms, index_add_ "
-                f"{on_path['index_add_ms']:.4f} ms; all allclose {on_path['allclose']}")
+                f"{on_path['ms']:.4f} ms (finalize {on_path['finalize_ms']:.4f} ms), bound "
+                f"{on_path['bound_ms']:.4f} ms ({on_path['bound_by']}), plain "
+                f"{on_path['plain_ms']:.4f} ms, index_add_ {on_path['index_add_ms']:.4f} ms; "
+                f"all allclose {on_path['allclose']}")
     bwd = ptf.profile_backward(envlit, reps=30)
     for name, c in bwd.items():
         phase("15", f"backward {name}: lanes={c['lanes']} texels={c['texels']} "
                     f"distinct_live_texels={c['distinct_live_texels']} allclose={c['allclose']} "
-                    f"max_abs_err={c['max_abs_err']:.3e} (scale {c['scale']:.3e}) "
-                    f"kernel_ms={c['ms']:.4f} bound_ms={c['bound_ms']:.4f} ({c['bound_by']}) "
+                    f"(x{c['checks']}) max_abs_err={c['max_abs_err']:.3e} (scale "
+                    f"{c['scale']:.3e}, tolerance used {c['tolerance_used']:.3f}) "
+                    f"kernel_ms={c['ms']:.4f} "
+                    f"finalize_ms={c['finalize_ms']:.4f} bound_ms={c['bound_ms']:.4f} "
+                    f"({c['bound_by']}) share={c['bound_ms'] / c['ms']:.3f} "
                     f"rmw_bound_ms={c['rmw_bound_ms']:.4f} plain_ms={c['plain_ms']:.4f} "
                     f"index_add_ms={c['index_add_ms']:.4f} "
                     f"index_add_allclose={c['index_add_allclose']}")
@@ -1264,10 +1276,11 @@ def main():
          "ms": bp["ms"] / n_bp, "plain_ms": bp["plain_ms"] / n_bp,
          "bound_ms": bp["bound_ms"] / n_bp, "bound_by": bp["bound_by"],
          "library_ms": bp["index_add_ms"] / n_bp, "gradient_launches": n_bp,
-         "gradient_ms": bp["ms"], "gradient_bound_ms": bp["bound_ms"],
-         "gradient_library_ms": bp["index_add_ms"],
+         "gradient_ms": bp["ms"], "gradient_finalize_ms": bp["finalize_ms"],
+         "gradient_bound_ms": bp["bound_ms"], "gradient_library_ms": bp["index_add_ms"],
+         "checks_per_launch": bp["launches"][0]["checks"],
          **{f"{cell}_{k}": bwd[cell][k] for cell in bwd
-            for k in ("ms", "plain_ms", "bound_ms", "index_add_ms")}},
+            for k in ("ms", "finalize_ms", "plain_ms", "bound_ms", "index_add_ms")}},
     ]}
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
         {"device": device_name, "nvidia_smi": smi_line, "cluster_kernels": report,

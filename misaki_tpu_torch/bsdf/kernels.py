@@ -391,6 +391,23 @@ def _pdf_roughdielectric(p, wi, wo):
 
 
 def _sample_roughdielectric(p, wi, u1, u2):
+    """Rough dielectric sampling (roughdielectric.cpp:60-116), taken in
+    float64 and rounded once to the inputs' type. On a microfacet seen at a
+    grazing angle (wi.m ~ 1e-5, a refraction near total internal reflection)
+    the float32 formulas turn the last bits of m, wi.m and 1 - F into the
+    pdf's leading digits: misaki_tpu's float32 pdf and the port's differed
+    there by up to 25%, each off the float64 value, on about one lane in
+    10^5 (tests/torch_bsdf_seed_scan.py)."""
+    dt = u1.dtype
+    q = {k: p[k].double() for k in ("alpha_u", "alpha_v", "eta", "spec_refl", "spec_trans")}
+    q["distr"] = p["distr"]
+    out = _sample_roughdielectric_f(q, tuple(c.double() for c in wi), u1.double(),
+                                    tuple(c.double() for c in u2))
+    return {"wo": tuple(c.to(dt) for c in out["wo"]), "pdf": out["pdf"].to(dt),
+            "weight": out["weight"].to(dt), "eta": out["eta"].to(dt), "valid": out["valid"]}
+
+
+def _sample_roughdielectric_f(p, wi, u1, u2):
     cti = frame.cos_theta(wi)
     # the reference samples the scaled-alpha distribution
     # (roughdielectric.cpp:69-76); the polar sampler ignores wi

@@ -28,6 +28,23 @@ def sqrt(x):
     return torch.sqrt(x)
 
 
+def cos(x):
+    """float32 cosine, rounded once from float64 on the CPU: torch's CPU
+    float32 cos is one ulp off XLA's on some inputs, which the cosine-
+    hemisphere warp's z = sqrt(1 - x^2 - y^2) turns into up to 1e-3 of z
+    at the disk's rim. On CUDA tensors torch.cos."""
+    if x.device.type == "cpu" and x.dtype == torch.float32:
+        return torch.cos(x.double()).float()
+    return torch.cos(x)
+
+
+def sin(x):
+    """float32 sine, rounded as `cos` is."""
+    if x.device.type == "cpu" and x.dtype == torch.float32:
+        return torch.sin(x.double()).float()
+    return torch.sin(x)
+
+
 def safe_sqrt(x):
     """sqrt clamped away from 0 (finite gradient at x <= 0)."""
     return sqrt(torch.clamp(x, min=1e-20))

@@ -31,7 +31,7 @@ def square_to_uniform_disk_concentric(sample):
     )
     r = torch.where(is_zero, 0.0, r)
     phi = torch.where(is_zero, 0.0, phi)
-    return (r * torch.cos(phi), r * torch.sin(phi))
+    return (r * m.cos(phi), r * m.sin(phi))
 
 
 def square_to_cosine_hemisphere(sample):

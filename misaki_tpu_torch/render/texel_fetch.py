@@ -18,13 +18,16 @@ gradient into the table's,
 
     grad_table[idx4[k, l], c] += w4[k, l] * grad_out[c, l]   (live taps),
 
-through `fetch4_backward`: on CUDA the kernel `fetch4_backward_kernel` of
-the same source, on the CPU the plain twin `fetch4_backward_plain`. Both
-round each product to float32 and sum in float64, then round once; the
-kernel adds with atomics in an order that varies from run to run, which
-the float64 sums keep well below float32's rounding. The JAX package has
-no backward kernel: its gradients take the one-hot fetch
-(misaki_tpu/render/textures.py:49-72).
+through `fetch4_backward`: on CUDA the kernels `fetch4_backward_kernel` and
+`fetch4_backward_finalize_kernel` of the same source, on the CPU the plain
+twin `fetch4_backward_plain`. Both round each product to float32. The twin
+sums in float64 and rounds once. The kernel sums a warp's products per
+texel in float64, and a block's, in a shared-memory table, for the texels
+the block fetches more than once; each such partial, rounded to float32
+once, goes into a float32 scratch with atomics, in an order that varies
+from run to run: a texel takes a float32 addition per partial, not one per
+tap. The JAX package has no backward kernel: its gradients take the
+one-hot fetch (misaki_tpu/render/textures.py:49-72).
 """
 
 import ctypes
@@ -80,6 +83,7 @@ def build():
     return cuda_build.load_library(SRC, {
         "fetch4_launch": ([p, i64, p, p, i64, p, p], i32),
         "fetch4_backward_launch": ([p, p, p, i64, i64, p, p], i32),
+        "fetch4_backward_finalize_launch": ([p, i64, p, p], i32),
     })
 
 
@@ -137,18 +141,28 @@ def fetch4_backward(idx4, w4, grad_out, n):
         raise ValueError(f"the table must have 0 < N < 2^31 texels, got {n}")
     if dev.type == "cpu":
         return fetch4_backward_plain(idx4, w4, grad_out, n)
-    # the kernel sums in float64; the gradient is that sum rounded once
-    grad = torch.zeros((n, 3), dtype=torch.float64, device=dev)
-    L = idx4.shape[1]
-    if L == 0:
-        return grad.float()
-    lib = build()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    cuda_build.check_launch(lib.fetch4_backward_launch(
-        idx4.data_ptr(), w4.data_ptr(), grad_out.data_ptr(), L, n, grad.data_ptr(), stream),
-        "texel-fetch backward kernel")
+    if idx4.shape[1] == 0:
+        return torch.zeros((n, 3), dtype=torch.float32, device=dev)
+    grad = backward_launch(build(), idx4, w4, grad_out, n)
     fetch_bwd_launches += 1
-    return grad.float()
+    return grad
+
+
+def backward_launch(lib, idx4, w4, grad_out, n):
+    """The backward kernel of the library `lib` (this source's, or another
+    with its interface) on checked CUDA inputs with L > 0: the reduction
+    into a zeroed (n, 4) float32 scratch, then the finalize into the (n, 3)
+    gradient."""
+    dev = grad_out.device
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rows = torch.zeros((n, 4), dtype=torch.float32, device=dev)
+    grad = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    cuda_build.check_launch(lib.fetch4_backward_launch(
+        idx4.data_ptr(), w4.data_ptr(), grad_out.data_ptr(), idx4.shape[1], n,
+        rows.data_ptr(), stream), "texel-fetch backward kernel")
+    cuda_build.check_launch(lib.fetch4_backward_finalize_launch(
+        rows.data_ptr(), n, grad.data_ptr(), stream), "texel-fetch backward finalize kernel")
+    return grad
 
 
 class Fetch4(torch.autograd.Function):

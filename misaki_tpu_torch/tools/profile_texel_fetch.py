@@ -32,11 +32,16 @@ used by the port). The table goes to `--out` (default
 
 `backward_case` does the same for the fetch's backward kernel on one set of
 taps (`profile_backward`: the first three cells): allclose to its
-`index_add_` twin, its time beside the twin's and the library call
-`index_add_`'s, and its bound. `--backward` times the backward kernel on
-those cells and on the taps of one envlit gradient (`gradient_taps`), beside
-each `--compare` source's (`profile_backward_versions`), into
-`chiprun_out/profile_texel_fetch_backward.md`.
+`index_add_` twin in each of `checks` calls (atomics add in an order that
+varies from run to run), its time beside the twin's, the library call
+`index_add_`'s and that of its scratch (`finalize_ms`: the call's time
+less that of its reduction kernel alone: the scratch's zeroing and the
+finalize), and its bound. `--backward` times the backward kernel on those
+cells and on the taps of one envlit gradient (`gradient_taps`), beside each
+`--compare` source's (`profile_backward_versions`), into
+`chiprun_out/profile_texel_fetch_backward.md`; `--spread N` adds the share
+of the tolerance that the port uses in each of N calls on each cell
+(`tolerance_spread`), its quantiles in the same file.
 """
 
 import argparse
@@ -131,6 +136,7 @@ def embedding_bag_call(table, idx4, w4):
 
 
 BACKWARD_CELLS = ("env_random", "bitmap_camera_mips", "env_nee")
+CHECKS = 10     # calls of the backward kernel held to its twin per set of taps
 
 
 def index_add_call(idx4, w4, grad_out, n):
@@ -156,39 +162,94 @@ def backward_bound(idx4, w4, n):
     return ms, by, (L * STREAM_BYTES + texels * 24) / HBM_BYTES_PER_S * 1e3, texels
 
 
-def backward_case(idx4, w4, grad_out, n, reps=30, launch=None):
+def reduce_call(idx4, w4, grad_out, n):
+    """The backward's reduction kernel alone (no finalize), adding into a
+    scratch of its own again and again: the kernel's time without the
+    finalize."""
+    lib = tf.build()
+    rows = torch.zeros((n, 4), device=grad_out.device)
+
+    def run():
+        cuda_build.check_launch(lib.fetch4_backward_launch(
+            idx4.data_ptr(), w4.data_ptr(), grad_out.data_ptr(), idx4.shape[1], n,
+            rows.data_ptr(), torch.cuda.current_stream().cuda_stream),
+            "texel-fetch backward kernel")
+
+    return run
+
+
+def backward_case(idx4, w4, grad_out, n, reps=30, launch=None, checks=None, want=None):
     """The backward kernel (`fetch4_backward`, or `launch` with its
-    arguments) on one set of taps: against its plain twin with
-    allclose(rtol 1e-5, atol 1e-6 of the twin's largest magnitude) (atomics
-    add in another order), its time beside the twin's and `index_add_`'s,
-    and its bound. Returns the numbers."""
+    arguments) on one set of taps: against its plain twin (`want`, if
+    given) with allclose(rtol 1e-5, atol 1e-6 of the twin's largest
+    magnitude) in each of `checks` (default CHECKS) calls (atomics add in
+    another order from run to run; `tolerance_used`: the largest |error| /
+    (atol + rtol |want|) of those calls, at most 1 where allclose), its time
+    and its bound; for the port's kernel also the
+    twin's, `index_add_`'s and the finalize's (`finalize_ms`: the call's time
+    less its reduction kernel's alone). Returns the numbers."""
+    port = launch is None
     launch = launch or tf.fetch4_backward
-    want = tf.fetch4_backward_plain(idx4, w4, grad_out, n)
-    got = launch(idx4, w4, grad_out, n)
+    checks = checks or CHECKS
+    if want is None:
+        want = tf.fetch4_backward_plain(idx4, w4, grad_out, n)
     scale = want.abs().max().item()
-    lib = index_add_call(idx4, w4, grad_out, n)
+    tol = 1e-6 * scale + 1e-5 * want.abs()
+    ok, err, used = True, 0.0, 0.0
+    for _ in range(checks):
+        got = launch(idx4, w4, grad_out, n)
+        ok &= bool(torch.allclose(got, want, rtol=1e-5, atol=1e-6 * scale))
+        err = max(err, (got - want).abs().max().item())
+        used = max(used, ((got - want).abs() / tol).max().item())
+    del got, tol
     bms, by, rmw_ms, texels = backward_bound(idx4, w4, n)
-    return {
-        "lanes": idx4.shape[1], "texels": n, "distinct_live_texels": texels,
-        "allclose": bool(torch.allclose(got, want, rtol=1e-5, atol=1e-6 * scale)),
-        "max_abs_err": (got - want).abs().max().item(), "scale": scale,
-        "ms": device_ms(lambda: launch(idx4, w4, grad_out, n), reps),
-        "plain_ms": device_ms(lambda: tf.fetch4_backward_plain(idx4, w4, grad_out, n), 5),
-        "index_add_ms": device_ms(lib, reps),
-        "index_add_allclose": bool(torch.allclose(lib(), want, rtol=1e-5, atol=1e-6 * scale)),
-        "bound_ms": bms, "bound_by": by, "rmw_bound_ms": rmw_ms}
+    res = {"lanes": idx4.shape[1], "texels": n, "distinct_live_texels": texels,
+           "allclose": ok, "checks": checks, "max_abs_err": err, "scale": scale,
+           "tolerance_used": used,
+           "ms": device_ms(lambda: launch(idx4, w4, grad_out, n), reps),
+           "bound_ms": bms, "bound_by": by, "rmw_bound_ms": rmw_ms}
+    if port:
+        lib = index_add_call(idx4, w4, grad_out, n)
+        res.update({
+            "plain_ms": device_ms(lambda: tf.fetch4_backward_plain(idx4, w4, grad_out, n), 5),
+            "index_add_ms": device_ms(lib, reps),
+            "index_add_allclose": bool(torch.allclose(lib(), want, rtol=1e-5,
+                                                      atol=1e-6 * scale)),
+            "finalize_ms": res["ms"] - device_ms(reduce_call(idx4, w4, grad_out, n), reps)})
+    return res
 
 
-def profile_backward(scene, reps=30, seed=1, launch=None):
-    """`backward_case` on the cells BACKWARD_CELLS of `scene` at 2^20 lanes,
-    grad_out drawn from a seeded generator. Returns {cell: numbers}."""
+def backward_cells(scene, seed=1):
+    """{cell: (idx4, w4, grad_out, n)} for the cells BACKWARD_CELLS of
+    `scene` at 2^20 lanes, grad_out drawn from a seeded generator."""
     cells = make_cells(scene)
     gen = torch.Generator(device=scene.device).manual_seed(seed)
     res = {}
     for name in BACKWARD_CELLS:
         table, idx4, w4 = cells[name]
         grad_out = torch.randn((3, idx4.shape[1]), device=scene.device, generator=gen)
-        res[name] = backward_case(idx4, w4, grad_out, table.shape[0], reps, launch)
+        res[name] = (idx4, w4, grad_out, table.shape[0])
+    return res
+
+
+def profile_backward(scene, reps=30, seed=1, launch=None):
+    """`backward_case` on `backward_cells(scene, seed)`. Returns {cell:
+    numbers}."""
+    return {name: backward_case(*case, reps=reps, launch=launch)
+            for name, case in backward_cells(scene, seed).items()}
+
+
+def tolerance_spread(scene, calls, seed=1):
+    """The share of the twin's tolerance (largest |error| / (atol + rtol
+    |want|), at most 1 where allclose) that the port's backward uses in each
+    of `calls` calls on each of `backward_cells(scene, seed)`: atomics add in
+    an order that varies from call to call. Returns {cell: sorted list}."""
+    res = {}
+    for name, (idx4, w4, grad_out, n) in backward_cells(scene, seed).items():
+        want = tf.fetch4_backward_plain(idx4, w4, grad_out, n)
+        tol = 1e-6 * want.abs().max() + 1e-5 * want.abs()
+        res[name] = sorted(((tf.fetch4_backward(idx4, w4, grad_out, n) - want).abs() / tol)
+                           .max().item() for _ in range(calls))
     return res
 
 
@@ -220,26 +281,35 @@ def gradient_taps(scene, names=("bitmaps", "env_rgb"), seed=0, depth_cap=4):
     return taps
 
 
-def profile_gradient_taps(taps, reps=10, launch=None):
-    """`backward_case` on each captured launch of `gradient_taps`, and their
-    sum: {"launches": [numbers], "allclose", "ms", "plain_ms",
-    "index_add_ms", "bound_ms" (sums over the launches), "bound_by" (the
-    largest bound's), "max_abs_err"}."""
-    each = [backward_case(*t, reps=reps, launch=launch) for t in taps]
+def profile_gradient_taps(taps, reps=10, launch=None, wants=None):
+    """`backward_case` on each captured launch of `gradient_taps` (`wants`:
+    their twins' gradients, if computed), and their sum: {"launches":
+    [numbers], "allclose", "max_abs_err", "bound_by" (the largest bound's),
+    and the sums over the launches of each time and bound}."""
+    wants = wants or [None] * len(taps)
+    each = [backward_case(*t, reps=reps, launch=launch, want=w) for t, w in zip(taps, wants)]
     total = {k: sum(c[k] for c in each)
-             for k in ("ms", "plain_ms", "index_add_ms", "bound_ms", "rmw_bound_ms")}
+             for k in ("ms", "plain_ms", "index_add_ms", "finalize_ms", "bound_ms",
+                       "rmw_bound_ms") if k in each[0]}
     return {"launches": each, "allclose": all(c["allclose"] for c in each),
             "max_abs_err": max(c["max_abs_err"] for c in each),
+            "tolerance_used": max(c["tolerance_used"] for c in each),
             "bound_by": max(each, key=lambda c: c["bound_ms"])["bound_by"], **total}
 
 
 def source_backward(src):
     """`fetch4_backward` through the `fetch4_backward_launch` of another
-    texel-fetch source (the same interface), for comparing two versions of
-    the kernel in one process."""
+    texel-fetch source, for comparing two versions of the kernel in one
+    process: a source with this one's interface (it has
+    `fetch4_backward_finalize_launch`) or with the previous kernel's (a
+    float64 (n, 3) scratch, rounded here)."""
     p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib = cuda_build.load_library(src, {"fetch4_backward_launch": ([p, p, p, i64, i64, p, p],
                                                                    i32)})
+    if hasattr(lib, "fetch4_backward_finalize_launch"):
+        lib.fetch4_backward_finalize_launch.argtypes = [p, i64, p, p]
+        lib.fetch4_backward_finalize_launch.restype = i32
+        return lambda idx4, w4, grad_out, n: tf.backward_launch(lib, idx4, w4, grad_out, n)
 
     def launch(idx4, w4, grad_out, n):
         grad = torch.zeros((n, 3), dtype=torch.float64, device=grad_out.device)
@@ -321,51 +391,77 @@ def _envlit(**kw):
     return load_and_compile(str(assets.prepared(SCENE_BUILD)), device="cuda", **kw)
 
 
-def profile_backward_versions(compare=(), reps=30, out=BACKWARD_OUT):
+def profile_backward_versions(compare=(), reps=30, out=BACKWARD_OUT, spread=0):
     """The backward kernel of the port and the `fetch4_backward_launch` of
     each `compare` source, in one process, on the BACKWARD_CELLS and on the
     taps of one envlit gradient at its declared 256x256 x 64 spp (depth cap
     4: a launch of 2^22 lanes per fetch of the frame), in the order port,
-    compare..., compare..., port. Writes a table to `out`; returns
-    {"runs": [(version, cells, gradient)], "card", "table"}."""
+    compare..., then the reverse; each held to its twin in CHECKS calls per
+    set of taps. With `spread` > 0, also `tolerance_spread` over that many
+    calls. Writes a table to `out`; returns {"runs": [(version, cells,
+    gradient)], "spread": {cell: sorted list}, "card", "table"}."""
     if not torch.cuda.is_available():
         raise RuntimeError("the texel-fetch profile needs a CUDA device")
     compare = [Path(c) for c in compare]
     cuda_build.compile_sources(list(dict.fromkeys([tf.SRC, *compare])))
     scene = _envlit()
     taps = gradient_taps(scene)
+    wants = [tf.fetch4_backward_plain(*t) for t in taps]
     launches = {"port": None, **{str(c): source_backward(c) for c in compare}}
     order = list(launches) + list(reversed(launches))
     runs = [(v, profile_backward(scene, reps, launch=launches[v]),
-             profile_gradient_taps(taps, max(reps // 3, 5), launches[v])) for v in order]
+             profile_gradient_taps(taps, max(reps // 3, 5), launches[v], wants)) for v in order]
     card = f"{torch.cuda.get_device_name(0)} ({smi_line()})"
     lines = [
         "# Texel-fetch backward profile", "",
         f"Card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}.",
         "Device ms (CUDA events over launches enqueued behind a held stream), each "
-        "including the wrapper's float64 zeroing and rounding; cells of 2^20 lanes, and the "
-        f"{len(taps)} launches of one envlit gradient (sums over them).", "",
-        "| version | taps | lanes | distinct live texels | allclose | kernel ms | bound ms | "
-        "plain ms | index_add_ ms |",
-        "|---|---|---|---|---|---|---|---|---|"]
+        "including the wrapper's scratch (finalize, zeroing or rounding); cells of 2^20 "
+        f"lanes, and the {len(taps)} launches of one envlit gradient (sums over them); "
+        f"allclose to the twin in each of {CHECKS} calls per set of taps (tolerance used: "
+        "the largest |error| / (atol + rtol |want|) of those calls). The port's rows "
+        "also give its finalize (the call less its reduction kernel alone), the plain twin "
+        "and `index_add_`. Share of bound: bound ms / kernel ms.", "",
+        "| version | taps | lanes | distinct live texels | allclose | max abs err | tolerance "
+        "used | kernel ms | bound ms | share of bound | finalize ms | plain ms | index_add_ ms |",
+        "|---|---|---|---|---|---|---|---|---|---|---|---|---|"]
+
+    def row(v, name, c, lanes, texels):
+        extra = " | ".join(f"{c[k]:.4f}" if k in c else "" for k in
+                           ("finalize_ms", "plain_ms", "index_add_ms"))
+        return (f"| {v} | {name} | {lanes} | {texels} | {c['allclose']} | "
+                f"{c['max_abs_err']:.3e} | {c['tolerance_used']:.3f} | {c['ms']:.4f} | "
+                f"{c['bound_ms']:.4f} | "
+                f"{c['bound_ms'] / c['ms']:.3f} | {extra} |")
+
     for v, cells, grad in runs:
         for name, c in cells.items():
-            lines.append(f"| {v} | {name} | {c['lanes']} | {c['distinct_live_texels']} | "
-                         f"{c['allclose']} | {c['ms']:.4f} | {c['bound_ms']:.4f} | "
-                         f"{c['plain_ms']:.4f} | {c['index_add_ms']:.4f} |")
-        lanes = sum(c["lanes"] for c in grad["launches"])
-        texels = sum(c["distinct_live_texels"] for c in grad["launches"])
-        lines.append(f"| {v} | envlit gradient, {len(grad['launches'])} launches | {lanes} | "
-                     f"{texels} | {grad['allclose']} | {grad['ms']:.4f} | "
-                     f"{grad['bound_ms']:.4f} | {grad['plain_ms']:.4f} | "
-                     f"{grad['index_add_ms']:.4f} |")
+            lines.append(row(v, name, c, c["lanes"], c["distinct_live_texels"]))
+        for k, c in enumerate(grad["launches"]):
+            lines.append(row(v, f"gradient launch {k}", c, c["lanes"],
+                             c["distinct_live_texels"]))
+        lines.append(row(v, f"envlit gradient, {len(grad['launches'])} launches", grad,
+                         sum(c["lanes"] for c in grad["launches"]),
+                         sum(c["distinct_live_texels"] for c in grad["launches"])))
+    spreads = tolerance_spread(scene, spread) if spread > 0 else {}
+    if spreads:
+        qs = (0.0, 0.5, 0.9, 0.99, 0.999, 1.0)
+        lines += ["", f"Share of the tolerance the port uses, over {spread} calls per cell "
+                  "(quantiles):", "",
+                  "| cell | " + " | ".join(f"q{q:g}" for q in qs) + " | calls over 0.8 |",
+                  "|---|" + "---|" * (len(qs) + 1)]
+        for name, used in spreads.items():
+            at = [used[min(int(q * len(used)), len(used) - 1)] for q in qs]
+            lines.append(f"| {name} | " + " | ".join(f"{u:.4f}" for u in at)
+                         + f" | {sum(u > 0.8 for u in used)} |")
     out = Path(out)
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text("\n".join(lines) + "\n")
-    return {"runs": runs, "card": card, "table": str(out)}
+    return {"runs": runs, "spread": spreads, "card": card, "table": str(out)}
 
 
 def main():
+    global CHECKS
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--reps", type=int, default=30)
     ap.add_argument("--out", default=None)
@@ -374,12 +470,20 @@ def main():
     ap.add_argument("--compare", action="append", default=[],
                     help="with --backward: another texel-fetch source whose "
                          "fetch4_backward_launch is timed on the same taps")
+    ap.add_argument("--checks", type=int, default=CHECKS,
+                    help="with --backward: calls held to the twin per set of taps")
+    ap.add_argument("--spread", type=int, default=0,
+                    help="with --backward: calls per cell for the spread of the share "
+                         "of the tolerance used (tolerance_spread)")
     args = ap.parse_args()
+    CHECKS = args.checks
     if args.backward:
-        res = profile_backward_versions(args.compare, args.reps, args.out or BACKWARD_OUT)
+        res = profile_backward_versions(args.compare, args.reps, args.out or BACKWARD_OUT,
+                                        args.spread)
         print(Path(res["table"]).read_text(), end="")
         if not all(cells[c]["allclose"] for _, cells, _ in res["runs"] for c in cells) or \
-                not all(grad["allclose"] for _, _, grad in res["runs"]):
+                not all(grad["allclose"] for _, _, grad in res["runs"]) or \
+                any(u > 1.0 for used in res["spread"].values() for u in used):
             raise SystemExit("a texel-fetch backward launch differs from the plain twin")
         return
     res = profile(reps=args.reps, out=args.out or DEFAULT_OUT)

@@ -27,17 +27,25 @@ are exempt, and each case prints how many:
     function (exp, log, pow, atan2) into up to 1e-4 relative. The port's
     sqrt is correctly rounded on the CPU, as XLA's is (core/math.py `sqrt`);
     torch's own float32 sqrt is not, and exempted up to 0.5% of the lanes.
+
+A sampled lane off misaki_tpu beyond either bound is held instead to
+misaki_tpu's own formulas taken in float64 (jax x64) on the same float32
+inputs, within the same bound, where misaki_tpu's float32 error there is
+the larger: the port takes the rough dielectric sampler in float64, whose
+float32 formulas on a microfacet seen at a grazing angle are ill-conditioned
+(misaki_tpu's float32 pdf is off the formulas' by up to 25% there).
 """
 
 import zlib
 from types import SimpleNamespace
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from torch_helpers import FURNACE_XML, n, t
+from torch_helpers import FURNACE_XML, lanes_off, n, nearer_float64, t
 
 from misaki_tpu.bsdf import kernels as jbsdf
 from misaki_tpu.core import fresnel as jfresnel
@@ -404,15 +412,38 @@ def _lane_mismatch(want, got, rtol=RTOL, atol=ATOL):
     w, g = np.asarray(want), n(got)
     if w.dtype == bool or np.issubdtype(w.dtype, np.integer):
         bad = g.astype(w.dtype) != w
-    else:
-        bad = ~np.isclose(g, w, rtol=rtol, atol=atol)
-    return bad.reshape(-1, bad.shape[-1]).any(axis=0)
+        return bad.reshape(-1, bad.shape[-1]).any(axis=0)
+    return lanes_off(w, g, rtol, atol)
 
 
 def _lane_mismatch2(want, got):
     """(beyond the tolerance, beyond the ill-conditioned lanes' bound)."""
     return (_lane_mismatch(want, got),
             _lane_mismatch(want, got, rtol=COND_RTOL, atol=COND_ATOL))
+
+
+def _sample_float64(params, kinds, ids, wi, uv, lam, u):
+    """misaki_tpu's material_params and sample_bsdf on the case's float32
+    inputs, taken in float64 (jax x64): the formulas' own values, against
+    which a lane where the port and misaki_tpu part is judged."""
+    with jax.enable_x64(True):
+        def d(a):
+            return jnp.asarray(np.asarray(a, np.float64))
+
+        jp = jbsdf.material_params(_scene(params.astype(np.float64), kinds, jnp.asarray),
+                                   jnp.asarray(ids), tuple(d(c) for c in uv), d(lam))
+        out = jbsdf.sample_bsdf(jp, tuple(d(c) for c in wi), d(u[0]), (d(u[1]), d(u[2])))
+        return {"wo": np.stack([np.asarray(c) for c in out["wo"]]),
+                "pdf": np.asarray(out["pdf"]), "weight": np.asarray(out["weight"])}
+
+
+def _held_to_float64(want, got, ref, bad, loose):
+    """The lanes of (bad, loose) that stay off where a lane off misaki_tpu's
+    float32 value `want` is held to the float64 value `ref` instead: within
+    the same bound of it, and misaki_tpu's own error there the larger."""
+    nearer = nearer_float64(want, n(got), ref)
+    bad64, loose64 = _lane_mismatch2(ref, got)
+    return bad & ~(nearer & ~bad64), loose & ~(nearer & ~loose64)
 
 
 def _assert_lanes(bad, loose, near, label, capsys=None):
@@ -482,9 +513,18 @@ def test_bsdf_kind_parity(name, capsys):
     pdf_at, w_at = at(n(c) for c in pb["wo"])
     want_pdf = np.where(consistent, pdf_at, j_pdf)
     want_w = np.where(consistent[None, :], w_at, j_w)
-    for want, got in ((want_pdf, pb["pdf"]), (want_w, pb["weight"]),
-                      (np.stack([np.asarray(c) for c in jb["wo"]]), torch.stack(pb["wo"]))):
+    # a lane off misaki_tpu beyond a bound is held to the float64 value
+    # instead, where misaki_tpu's own error is the larger (an ill-conditioned
+    # formula: a refraction on a microfacet seen at a grazing angle, which
+    # the port takes in float64)
+    ref = None
+    for key, want, got in (("pdf", want_pdf, pb["pdf"]), ("weight", want_w, pb["weight"]),
+                           ("wo", np.stack([np.asarray(c) for c in jb["wo"]]),
+                            torch.stack(pb["wo"]))):
         b, lo = _lane_mismatch2(want, got)
+        if b.any():
+            ref = ref or _sample_float64(params, kinds, ids, wi, uv, lam, u)
+            b, lo = _held_to_float64(want, got, ref[key], b, lo)
         bad, loose = bad | b, loose | lo
     # the sampled directions' eval and pdf, where the samples agree
     ok = t(~bad)

@@ -454,6 +454,14 @@ def test_fetch4_backward_routes_by_device():
         tf.fetch4_backward(idx.long(), w, g, 50)
     with pytest.raises(ValueError, match="device meta"):
         tf.fetch4_backward(idx.to("meta"), w.to("meta"), g.to("meta"), 50)
+    with pytest.raises(ValueError, match="0 < N"):
+        tf.fetch4_backward(idx, w, g, 0)
+    with pytest.raises(ValueError, match="contiguous"):
+        tf.fetch4_backward(idx, w, g.T.contiguous().T, 50)
+    # no taps: an all-zero gradient of the table's shape
+    empty = tf.fetch4_backward(idx[:, :0].contiguous(), w[:, :0].contiguous(),
+                               g[:, :0].contiguous(), 50)
+    assert empty.shape == (50, 3) and not empty.any()
     table = t(rs.uniform(size=(50, 3)).astype(np.float32)).requires_grad_()
     assert tf.fetch4(table, idx, w).grad_fn is not None
     with torch.no_grad():

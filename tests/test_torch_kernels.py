@@ -373,25 +373,128 @@ def _backward_case(case, L=1 << 20, N=1 << 20):
     return idx, w, grad_out, N
 
 
+REPEATS = 10    # calls of the backward kernel held to the twin per case
+
+
+def _backward_matches(idx, w, grad_out, N, exact):
+    """REPEATS calls of the backward kernel, each one launch, each allclose
+    to the twin (rtol 1e-5, atol 1e-6 of its largest magnitude) and, on
+    exact data, equal to it. Returns the last gradient."""
+    want = tf.fetch4_backward_plain(idx, w, grad_out, N)
+    atol = 1e-6 * want.abs().max().item()
+    for _ in range(REPEATS):
+        before = tf.fetch_bwd_launches
+        got = tf.fetch4_backward(idx, w, grad_out, N)
+        torch.cuda.synchronize()
+        assert tf.fetch_bwd_launches == before + 1
+        assert got.shape == (N, 3) and got.dtype == torch.float32 and got.is_contiguous()
+        assert torch.allclose(got, want, rtol=1e-5, atol=atol)
+        if exact:
+            # every update landed, in whatever order
+            assert torch.equal(got, want)
+    return got
+
+
 @pytest.mark.parametrize("case", ["random", "coherent", "one_texel", "warp_groups"])
 def test_fetch4_backward_matches_plain(case):
-    """The backward kernel against its index_add_ twin at 2^20 lanes: equal
-    to rounding (atomics add in another order from run to run)."""
+    """The backward kernel against its index_add_ twin at 2^20 lanes, in
+    each of REPEATS calls: equal to rounding (atomics add in another order
+    from run to run), to the bit on exact data."""
     idx, w, grad_out, N = _backward_case(case)
-    before = tf.fetch_bwd_launches
-    got = tf.fetch4_backward(idx, w, grad_out, N)
-    torch.cuda.synchronize()
-    assert tf.fetch_bwd_launches == before + 1
-    want = tf.fetch4_backward_plain(idx, w, grad_out, N)
-    assert got.shape == (N, 3)
-    assert torch.allclose(got, want, rtol=1e-5, atol=1e-6 * want.abs().max().item())
-    if case in ("one_texel", "warp_groups"):
-        # exact data: every update landed, in whatever order
-        assert torch.equal(got, want)
+    got = _backward_matches(idx, w, grad_out, N, case in ("one_texel", "warp_groups"))
     if case == "one_texel":
         assert (got[3] != 0).all() and (got[:3] == 0).all() and (got[4:] == 0).all()
     if case == "warp_groups":
         assert (got[:5] != 0).any(dim=1).all() and (got[5:] == 0).all()
+
+
+def _halves(w, g, L):
+    """Exact data: live weights 0.5 or 1 and output gradients in {-0.5, 0,
+    0.5}, so every product and partial sum is exact in float32."""
+    w = torch.where(w != 0.0, 0.5 + 0.5 * (w > 0.5).float(), 0.0).contiguous()
+    return w, 0.5 * torch.randint(-1, 2, (3, L), device="cuda", generator=g).float()
+
+
+def test_fetch4_backward_table_overflow():
+    """More distinct ids per block than its shared table can place: every
+    id hashes (the kernel's multiplicative hash into 2^10 slots) into the
+    same four slots, so past the first few the warp groups find no slot
+    within their probes and go straight to device memory; the ids repeat,
+    so they pass the seen-once filter and the table also merges (a lone
+    product and a merged partial take the two device-memory paths). Exact
+    data: equal to the twin."""
+    N, L = 1 << 22, 1 << 20
+    g = torch.Generator(device="cuda").manual_seed(21)
+    ids = torch.arange(N, device="cuda", dtype=torch.int64)
+    slot = (ids * 2654435761 % (1 << 32)) >> 22
+    colliding = ids[slot < 4][:4096].to(torch.int32)
+    assert colliding.numel() == 4096
+    pick = torch.randint(0, colliding.numel(), (4, L), device="cuda", generator=g)
+    idx = colliding[pick].contiguous()
+    w, grad_out = _halves(torch.rand((4, L), device="cuda", generator=g), g, L)
+    _backward_matches(idx, w, grad_out, N, exact=True)
+
+
+@pytest.mark.parametrize("N", [1, 2, 1001])
+def test_fetch4_backward_last_row(N):
+    """Taps on the table's last texels, so that a 16-byte row of the scratch
+    ends the buffer, mixed with dead taps past the end. Exact data."""
+    L = 5000
+    g = torch.Generator(device="cuda").manual_seed(N)
+    idx = N - 1 - torch.randint(0, min(N, 3), (4, L), device="cuda", generator=g,
+                                dtype=torch.int32)
+    idx = torch.where(torch.rand((4, L), device="cuda", generator=g) < 0.1, N, idx)
+    w, grad_out = _halves(torch.rand((4, L), device="cuda", generator=g), g, L)
+    got = _backward_matches(idx.contiguous(), w, grad_out, N, exact=True)
+    assert (got[N - 1] != 0).any()
+
+
+def test_fetch4_backward_every_tap_dead():
+    """Weights 0 or ids out of range on every tap: exact zeros."""
+    N, L = 5000, (1 << 16) + 5
+    g = torch.Generator(device="cuda").manual_seed(5)
+    _, idx, w = _fetch_case(N, L, 5)
+    out = torch.rand((4, L), device="cuda", generator=g) < 0.5
+    idx = torch.where(out, torch.where(idx < 0, -1, N + 1), idx).to(torch.int32).contiguous()
+    w = torch.where(out, w, 0.0).contiguous()
+    grad_out = torch.randn((3, L), device="cuda", generator=g)
+    got = _backward_matches(idx, w, grad_out, N, exact=True)
+    assert torch.equal(got, torch.zeros_like(got))
+
+
+@pytest.mark.parametrize("L", [1, 31, 257, 1000003])
+def test_fetch4_backward_ragged_lanes(L):
+    """L not a multiple of a warp, a tile or a block's range: random and
+    coherent taps (a tenth of the lanes on one of 64 texels) into 2^16
+    texels."""
+    N = 1 << 16
+    _, idx, w = _fetch_case(N, L, L)
+    g = torch.Generator(device="cuda").manual_seed(L)
+    hot = torch.rand((4, L), device="cuda", generator=g) < 0.1
+    hot_ids = torch.randint(0, 64, (4, L), device="cuda", generator=g, dtype=torch.int32)
+    idx = torch.where(hot & (w != 0), hot_ids, idx).contiguous()
+    grad_out = torch.randn((3, L), device="cuda", generator=g)
+    _backward_matches(idx, w, grad_out, N, exact=False)
+
+
+def test_fetch4_backward_two_tables_in_one_pass():
+    """Two fetches from tables of different sizes, interleaved in one
+    autograd pass (a bitmap and an envmap in one frame): each table's
+    gradient is its own fetch's, one backward launch each."""
+    ta, ia, wa = _fetch_case(5000, 1 << 16, 8)
+    tb, ib, wb = _fetch_case(70001, 1 << 16, 9)
+    ta, tb = ta.requires_grad_(), tb.requires_grad_()
+    b0 = tf.fetch_bwd_launches
+    loss = ((tf.fetch4(ta, ia, wa) * tf.fetch4(tb, ib, wb)).sum()
+            + tf.fetch4(ta, ib % 5000, wb).sum())
+    loss.backward()
+    torch.cuda.synchronize()
+    assert tf.fetch_bwd_launches == b0 + 3
+    a2, b2 = ta.detach().clone().requires_grad_(), tb.detach().clone().requires_grad_()
+    ((tf.fetch4_plain(a2, ia, wa) * tf.fetch4_plain(b2, ib, wb)).sum()
+     + tf.fetch4_plain(a2, ib % 5000, wb).sum()).backward()
+    for got, want in ((ta.grad, a2.grad), (tb.grad, b2.grad)):
+        assert torch.allclose(got, want, rtol=1e-5, atol=1e-6 * want.abs().max().item())
 
 
 def test_fetch4_autograd_on_the_card():

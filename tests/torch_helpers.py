@@ -29,6 +29,24 @@ def n(x):
     return np.asarray(x)
 
 
+def lanes_off(want, got, rtol, atol):
+    """Per lane (last axis): does got differ from want beyond rtol / atol."""
+    w, g = np.asarray(want, np.float64), np.asarray(got, np.float64)
+    bad = ~np.isclose(g, w, rtol=rtol, atol=atol)
+    return bad.reshape(-1, bad.shape[-1]).any(axis=0)
+
+
+def nearer_float64(want, got, ref):
+    """Per lane (last axis): is the port's value `got` nearer to `ref`, the
+    same formulas taken in float64 on the same float32 inputs, than
+    misaki_tpu's float32 value `want` is."""
+    ref = np.asarray(ref, np.float64)
+    err_want = np.abs(np.asarray(want, np.float64) - ref)
+    err_got = np.abs(np.asarray(got, np.float64) - ref)
+    return (err_want.reshape(-1, ref.shape[-1]).max(axis=0)
+            > err_got.reshape(-1, ref.shape[-1]).max(axis=0))
+
+
 def golden_criteria(got, want):
     """The golden-image criteria of tests/test_golden_images.py: each
     texel's error as a share of the image's maximum; fewer than 2% of texels
