@@ -46,7 +46,7 @@ Phases, one line each; any failure exits non-zero:
      balls (misaki_tpu_torch/scenes/testball/), at their declared 1280x720,
      128 spp (max_depth 5 and 7): a small warm-up render, then one timed
      frame each with the cluster launches checked; the same image checks;
-     device busy share and top kernels from a profiled 16 spp frame at
+     device busy share and top kernels from a profiled 4 spp frame at
      1280x720; a small render of each on cuda against the CPU;
  11. the bunny intersection-rate workload (scenes/bunny_debug.xml: the
      `debug` integrator, 768x768, 1 spp, one chunk) through render() on
@@ -80,7 +80,7 @@ Phases, one line each; any failure exits non-zero:
      (b) one image_grads of the image mean over bitmaps and env_rgb on
      envlit at the same spec: backward fetch launches equal the forward
      fetches, directional FDs within 5%, the same gradient on CUDA and on
-     the CPU at 64x48 x 16 spp within 1e-4 relative L1, and where that gap
+     the CPU at 64x48 x 16 spp (depth cap 2) within 1e-4 relative L1, and where that gap
      comes from (the plain twin's sums with the taps or the output
      gradients of one device and the rest of the other's); (c) the fetch's
      backward kernel against its index_add_ twin (allclose rtol 1e-5, atol
@@ -90,6 +90,29 @@ Phases, one line each; any failure exits non-zero:
      bitmap_camera_mips and env_nee taps, beside its scratch's zeroing and
      finalize alone and the library call index_add_; (d) the envlit
      gradient's peak memory and time by chunk size;
+ 16. volpath and participating media: (a) the teapot stand-in
+     (misaki_tpu_torch/scenes/teapot/: glass holding a homogeneous medium,
+     a null sphere holding a scattering one) at its declared 1280x720, 128
+     spp, depth cap 8: a small warm-up render, then one timed frame with
+     the launches checked (closest hit 1 + 5 x 8 a chunk, no any hit, no
+     fetch); device busy share and top kernels from a profiled 4 spp frame
+     at 1280x720, and the closest-hit kernel's device time per launch by
+     its place in a chunk (camera, transmittance segments 1-4, next cast);
+     image checks (finite, non-negative, each medium's pixels changed by
+     the media, against a 160x90 render with the media's scale 0); a
+     64x36, 4 spp render (depth cap 2) on cuda against the CPU; (b) the grid-volume scene
+     (scenes/volume/, its 64^3 grid written into build/scenes/volume/<hash>/
+     at first use) at 256x256, 64 spp, depth cap 4 (launches 21 / 0 / 0 a
+     chunk), image checks, the kernel launches and busy share of one
+     profiled chunk (64x64 x 16 spp) and a small CUDA-vs-CPU render; (c) one
+     image_grads of the image mean over sigma_s_amp, sigma_a_amp and
+     medium_scale on the teapot at 256x256 x 64 spp and over volumes on the
+     grid at 128x128 x 16 spp (2^18 lanes: a grid's 32-step marches keep
+     their activations), each with its time, peak memory and launches, a
+     directional FD within 10% on the media's transmittance (where the
+     estimator is smooth in the leaf; the image's FD is reported beside
+     it), and the same gradients on CUDA and on the CPU at 64x36 x 16 spp
+     (depth cap 2) within 1e-4 relative L1;
 then the port's bench (python -m misaki_tpu_torch.tools.bench), its lines
 printed with a "[bench]" prefix. Timed and profiled frames pass the bench's
 `quiet` progress callback, so the driver's progress log stays out of them.
@@ -114,11 +137,18 @@ SCENES = ROOT / "misaki_tpu_torch" / "scenes"
 SCENE_BUILD = ROOT / "build" / "scenes" / "envlit"
 GALLERY_BUILD = ROOT / "build" / "scenes" / "materials"
 TESTBALL_DIR = ROOT / "misaki_tpu_torch" / "scenes" / "testball"
+TEAPOT_XML = SCENES / "teapot" / "scene.xml"
+VOLUME_BUILD = ROOT / "build" / "scenes" / "volume"
 
 # benchmark spec of the main path (bench.py:29-67)
 BENCH_W, BENCH_H, BENCH_SPP, BENCH_DEPTH, BENCH_CHUNK = 256, 256, 64, 4, 1 << 20
 N_RAYS = 1 << 20
 N_FRAMES = 3
+# depth cap of the CPU halves of phases 15 and 16's CUDA-vs-CPU gradients and
+# of the teapot's CUDA-vs-CPU render: the CPU casts scan every cluster on
+# incoherent rays, and at depth 4 those halves took 141, 158 and 60 s of
+# the script's time limit
+CPU_CHECK_DEPTH = 2
 
 
 def fail(msg):
@@ -273,32 +303,34 @@ def read_counts():
             "fetch": tf.fetch_launches, "fetch_bwd": tf.fetch_bwd_launches}
 
 
-def timed_frames(scene, label, want_per_chunk, n_frames=N_FRAMES, warmup=None):
+def timed_frames(scene, label, want_per_chunk, n_frames=N_FRAMES, warmup=None,
+                 depth_cap=BENCH_DEPTH):
     """A warm-up frame (of `warmup`, else of `scene`), then `n_frames` timed
     frames of `scene` on cuda with every launch count set to 0 just before
     them and read just after; fails unless the counts are n_frames * chunks
     * `want_per_chunk` and the fetch's backward never ran. Rays per frame
     count `bench.py:65-68`'s way, W * H * spp * rays per sample
     (tools/bench.py `rays_per_sample`: 1 + 2 * bounce iterations on a path
-    frame). Returns (last frame's output, seconds per frame, rays/s,
-    launches)."""
+    frame, 1 + 5 on a volpath frame). Returns (last frame's output, seconds
+    per frame, rays/s, launches)."""
     import torch
 
     from misaki_tpu_torch.render.driver import render
-    from misaki_tpu_torch.render.integrator import n_bounce_iters
+    from misaki_tpu_torch.render.integrator import n_bounce_iters, volpath_iters
     from misaki_tpu_torch.tools.bench import quiet, rays_per_sample
 
     n_samples = scene.film_width * scene.film_height * scene.spp
     n_chunks = -(-n_samples // BENCH_CHUNK)
-    n_iters = n_bounce_iters(scene, BENCH_DEPTH)
-    per_sample = rays_per_sample(scene, BENCH_DEPTH)
+    n_iters = (volpath_iters if scene.integrator == "volpath" else n_bounce_iters)(
+        scene, depth_cap)
+    per_sample = rays_per_sample(scene, depth_cap)
     render(scene if warmup is None else warmup, seed=0, chunk_size=BENCH_CHUNK,
-           depth_cap=BENCH_DEPTH, progress=quiet)
+           depth_cap=depth_cap, progress=quiet)
     torch.cuda.synchronize()
     reset_counts()
     t0 = time.perf_counter()
     for i in range(n_frames):
-        out = render(scene, seed=i + 1, chunk_size=BENCH_CHUNK, depth_cap=BENCH_DEPTH,
+        out = render(scene, seed=i + 1, chunk_size=BENCH_CHUNK, depth_cap=depth_cap,
                      progress=quiet)
     torch.cuda.synchronize()
     dt = (time.perf_counter() - t0) / n_frames
@@ -315,14 +347,14 @@ def timed_frames(scene, label, want_per_chunk, n_frames=N_FRAMES, warmup=None):
     return out, dt, rays_per_s, launches
 
 
-def cuda_vs_cpu(scene_cpu, label):
+def cuda_vs_cpu(scene_cpu, label, depth_cap=BENCH_DEPTH):
     """The same small render on cuda and on the CPU through the bench's
     `cuda_cpu_parity`: relative difference of the image means < 0.5%,
     relative L1 < 2%, on the RGB and on every AOV. Returns the largest of
     each over the images."""
     from misaki_tpu_torch.tools.bench import cuda_cpu_parity
 
-    res = cuda_cpu_parity(scene_cpu)
+    res = cuda_cpu_parity(scene_cpu, depth_cap=depth_cap)
     ok = res.pop("ok")
     for name, r in res.items():
         phase(label, f"{scene_cpu.film_width}x{scene_cpu.film_height} {scene_cpu.spp} spp "
@@ -688,16 +720,16 @@ def phase_train():
 
 
 def captured_gradient(scene, names, loss_fn, stats=None):
-    """One image_grads at phase 7's reduced size (seed 7) with the taps of
-    every backward launch captured: -> (gradients, [(idx4, w4, grad_out, n)]
-    on the CPU)."""
+    """One image_grads at phase 7's reduced size (seed 7, depth cap
+    CPU_CHECK_DEPTH) with the taps of every backward launch captured: ->
+    (gradients, [(idx4, w4, grad_out, n)] on the CPU)."""
     import torch
 
     from misaki_tpu_torch.diff.backprop import image_grads
     from misaki_tpu_torch.tools import profile_texel_fetch as ptf
 
     with ptf.captured_backward() as taps:
-        _, _, grads = image_grads(scene, names, loss_fn, seed=7, depth_cap=BENCH_DEPTH,
+        _, _, grads = image_grads(scene, names, loss_fn, seed=7, depth_cap=CPU_CHECK_DEPTH,
                                   stats=stats)
     return grads, [tuple(x.cpu() if torch.is_tensor(x) else x for x in t) for t in taps]
 
@@ -796,7 +828,8 @@ def phase_envlit_grad(envlit_xml, envlit):
               **{f"cuda_vs_cpu_{k}": v < 1e-4 for k, v in l1.items()}}
     phase("15", f"envlit 256x256 64 spp gradient of the image mean over {names}: "
                 f"{gradient_timing(stats)}; launches {launches} expected {want}; "
-                f"directional FD {fds}; 64x48 16 spp CUDA vs CPU relative L1 {l1} (the CPU "
+                f"directional FD {fds}; 64x48 16 spp CUDA vs CPU (depth cap {CPU_CHECK_DEPTH}) "
+                f"relative L1 {l1} (the CPU "
                 f"gradient {cpu['primal_s'] + cpu['backward_s']:.1f} s); the gap's anatomy "
                 f"(relative L1 of the twin's sums from the CUDA taps or the CUDA grad_out, "
                 f"the other half the CPU's) {anatomy}; checks {checks}")
@@ -854,6 +887,318 @@ def phase_envlit_grad(envlit_xml, envlit):
             "cuda_vs_cpu_l1": l1, "gap_anatomy": anatomy, "backward_on_path": on_path,
             "backward_kernel": bwd,
             "by_chunk": by_chunk, "frames": 1}
+
+
+TEAPOT_DEPTH = 8        # tools/flagship_renders.py's depth cap of the teapot
+VOL_GRAD_LANES = 1 << 18
+
+
+def medium_masks(scene):
+    """{medium id: (H, W) bool} of the pixels whose pixel-centre camera ray
+    first meets that medium's boundary, eroded by the filter's reach
+    (`interior`)."""
+    import torch
+
+    from misaki_tpu_torch.accel import traverse
+    from misaki_tpu_torch.render import camera as cam
+    from misaki_tpu_torch.render import interaction as inter
+
+    W, H = scene.film_width, scene.film_height
+    pix = torch.arange(W * H, device=scene.device)
+    pos = ((pix % W).float() + 0.5, (pix // W).float() + 0.5)
+    ray = cam.sample_ray_differential(scene.camera, pos, torch.full((W * H,), 0.5,
+                                                                    device=scene.device))
+    hit = traverse.intersect(scene, ray["o"], ray["d"], ray["mint"], ray["maxt"])
+    si = inter.compute_interaction(scene, hit, ray["o"], ray["d"], ray["wavelengths"])
+    med = si["med_int"].reshape(H, W)
+    return {m: interior(med == m).cpu().numpy() for m in range(scene.media.kind.shape[0])}
+
+
+def closest_by_segment(events, per_chunk):
+    """The closest-hit kernel's device time per launch (ms) by its place in
+    a volpath chunk of `per_chunk` launches (the camera cast, then
+    transmittance segments 1-4 and the next cast of each iteration), from a
+    profile's events. None where the profile holds no whole chunks."""
+    from torch.autograd import DeviceType
+
+    ev = sorted((e for e in events if getattr(e, "device_type", None) == DeviceType.CUDA
+                 and "closest_hit" in e.name), key=lambda e: e.time_range.start)
+    if not ev or len(ev) % per_chunk:
+        return None
+    names = ["camera"] + [f"segment {k}" for k in range(1, 5)] + ["next cast"]
+    sums = {k: [0.0, 0] for k in names}
+    for i, e in enumerate(ev):
+        k = i % per_chunk
+        name = names[0] if k == 0 else names[1 + (k - 1) % 5]
+        sums[name][0] += e.time_range.elapsed_us() / 1e3
+        sums[name][1] += 1
+    return {k: t / c for k, (t, c) in sums.items() if c}
+
+
+def transmittance_fd(scene, leaf, step_rel=0.01, n=1 << 16, seed=12):
+    """The medium's transmittance through the port's own stages, where a
+    frame's estimator is smooth in the leaf: the sum of
+    `_attenuated_transmittance` over `n` shadow rays from inside each of the
+    teapot's media to its far side (sigma leaves), or of
+    `transmittance_ray` across the grid's unit cube (`volumes`). -> (its
+    directional central difference along sign(g), g . step, g finite)."""
+    import torch
+
+    from misaki_tpu_torch.diff import get_leaves, replace_leaves
+    from misaki_tpu_torch.render import integrator as integ
+    from misaki_tpu_torch.render import medium as med
+
+    dev = scene.device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.rand(*shape, device=dev, generator=gen)
+
+    wav = 360.0 + 470.0 * rnd(4, n)
+    if leaf == "volumes":
+        m12 = scene.volume_meta[0][4]
+        lift = m12[7]   # the unit cube's y offset in world (a translation)
+        o = (torch.full((n,), -0.2, device=dev), 0.1 + 0.8 * rnd(n) - lift, 0.1 + 0.8 * rnd(n))
+        d = (torch.ones(n, device=dev), torch.zeros(n, device=dev), torch.zeros(n, device=dev))
+        ids = torch.zeros(n, dtype=torch.int32, device=dev)
+
+        def f(sc):
+            mp = med.fetch_medium(sc, ids, wav)
+            return med.transmittance_ray(sc, mp, ids, o, d, torch.full((n,), 1.6,
+                                                                        device=dev)).sum()
+    else:
+        centre = torch.tensor([[0.0, 1.0, 0.0], [1.9, 0.6, 0.6]], device=dev)
+        which = (rnd(n) < 0.5).long()
+        radius = torch.where(which == 1, 0.6, 1.0)[:, None]
+
+        def on_sphere():
+            a = torch.randn(n, 3, device=dev, generator=gen)
+            return centre[which] + 0.8 * radius * a / a.norm(dim=1, keepdim=True)
+
+        p, q = on_sphere(), on_sphere()
+        dist = (q - p).norm(dim=1)
+        dn = (q - p) / dist[:, None]
+        ids = which.to(torch.int32)
+
+        def f(sc):
+            return integ._attenuated_transmittance(sc, tuple(p.T), tuple(dn.T), dist, ids,
+                                                   wav).sum()
+
+    v0 = get_leaves(scene, (leaf,))[leaf]
+    x = v0.detach().clone().requires_grad_()
+    f(replace_leaves(scene, {leaf: x})).backward()
+    g = x.grad.double()
+    step = torch.sign(g) * (step_rel if leaf == "volumes" else step_rel * v0.double().abs())
+    with torch.no_grad():
+        fd = (float(f(replace_leaves(scene, {leaf: (v0.double() + step).float()})))
+              - float(f(replace_leaves(scene, {leaf: (v0.double() - step).float()})))) / 2.0
+    return fd, float((g * step).sum()), bool(torch.isfinite(g).all())
+
+
+def media_gradient(scene, names, label, chunk_size, fd_leaves):
+    """One image_grads of the image mean over the media leaves `names` on
+    cuda with the launches counted, the transmittance FD of each of
+    `fd_leaves`, and the image-level FD of the first leaf beside it
+    (reported only: a frame's estimator at a fixed seed is piecewise
+    constant in sigma, and the pathwise gradient leaves the flips out).
+    Returns its numbers and checks."""
+    import torch
+
+    from misaki_tpu_torch.diff import get_leaves, replace_leaves
+    from misaki_tpu_torch.diff.backprop import image_grads
+    from misaki_tpu_torch.render.driver import render
+    from misaki_tpu_torch.tools.bench import quiet
+
+    # warm-up: the first gradient of a scene pays for autograd's set-up
+    image_grads(scene.replace(spp=1, film_width=32, film_height=32), names,
+                lambda r: r.mean(), seed=7, depth_cap=BENCH_DEPTH)
+    torch.cuda.synchronize()
+    stats = {}
+    reset_counts()
+    t0 = time.perf_counter()
+    _, _, grads = image_grads(scene, names, lambda r: r.mean(), seed=7, depth_cap=BENCH_DEPTH,
+                              chunk_size=chunk_size, stats=stats)
+    torch.cuda.synchronize()
+    grad_s = time.perf_counter() - t0
+    launches = read_counts()
+    n_lanes = scene.film_width * scene.film_height * scene.spp
+    passes = stats["chunks"] + (0 if stats["chunks"] == 1 else -(-n_lanes // BENCH_CHUNK))
+    per_pass = 1 + 5 * BENCH_DEPTH
+    want = {"closest": passes * per_pass, "anyhit": 0, "fetch": 0, "fetch_bwd": 0}
+    finite = all(bool(torch.isfinite(g).all()) for g in grads.values())
+    fds = {k: transmittance_fd(scene, k) for k in fd_leaves}
+    lead = names[0]
+    g0 = grads[lead].double()
+    v0 = get_leaves(scene, (lead,))[lead].double()
+    dv = torch.sign(g0) * 0.01 * v0.abs().clamp(min=1e-3)
+
+    def mean_at(v):
+        out = render(replace_leaves(scene, {lead: v.float()}), seed=7, depth_cap=BENCH_DEPTH,
+                     progress=quiet)
+        return float(out["rgb"].double().mean())
+
+    image_fd = (mean_at(v0 + dv) - mean_at(v0 - dv)) / 2.0
+    image_gd = float((g0 * dv).sum())
+    checks = {"grads_finite": finite, "launches": launches == want,
+              **{f"fd_{k}": r[2] and r[1] > 0 and abs(r[0] - r[1]) <= 0.1 * abs(r[1])
+                 for k, r in fds.items()}}
+    one_pass = stats["chunks"] == 1
+    phase("16", f"{label} {scene.film_width}x{scene.film_height} {scene.spp} spp gradient of the "
+                f"image mean over {names}, depth cap {BENCH_DEPTH}: {grad_s:.4f} s, "
+                f"{gradient_timing(stats)}"
+                + ("" if one_pass else f" (the frame's {n_lanes} lanes exceed one pass of "
+                                       f"{chunk_size}: image_grads' chunked path)")
+                + f"; launches {launches} expected {want}; |g| "
+                + ", ".join(f"{k} {float(g.abs().sum()):.4e}" for k, g in grads.items())
+                + "; transmittance FD against g . step: "
+                + ", ".join(f"{k} {r[0]:.6e} / {r[1]:.6e}" for k, r in fds.items())
+                + f"; image FD of {lead} {image_fd:.6e} against g . step {image_gd:.6e} "
+                  f"(reported, not checked); checks {checks}")
+    if not all(checks.values()):
+        fail(f"phase 16: {label} gradient checks failed {checks}")
+    return {"grad_s": grad_s, **stats, "launches": launches, "transmittance_fd": fds,
+            "image_fd": image_fd, "image_grad_dot_step": image_gd, "one_pass": one_pass,
+            "frames": 1}
+
+
+def phase_volpath():
+    """Phase 16: volpath and participating media. (a) The teapot stand-in
+    at its declared 1280x720 x 128 spp, depth cap 8; (b) the grid-volume
+    scene at the benchmark spec; (c) media gradients. Returns the numbers
+    for chip_smoke.json."""
+    import numpy as np
+    import torch
+
+    from misaki_tpu_torch.diff import replace_leaves
+    from misaki_tpu_torch.diff.backprop import GRAD_CHUNK, image_grads
+    from misaki_tpu_torch.render import driver
+    from misaki_tpu_torch.scene.compiler import load_and_compile
+    from misaki_tpu_torch.scenes.volume import assets as volume_assets
+    from misaki_tpu_torch.tools.bench import quiet
+
+    out = {}
+    # ---- (a) the teapot stand-in at its declared spec
+    t0 = time.perf_counter()
+    tp = load_and_compile(str(TEAPOT_XML))
+    phase("16", f"teapot {TEAPOT_XML.relative_to(ROOT)}: {tp.n_faces} faces, "
+                f"{tp.cluster.n_clusters} clusters, BSDF kinds {tp.bsdf_kinds}, media "
+                f"{tp.media.kind.shape[0]}, max_depth {tp.max_depth}; compile "
+                f"{time.perf_counter() - t0:.2f} s")
+    per_chunk = 1 + 5 * TEAPOT_DEPTH
+    warm = load_and_compile(str(TEAPOT_XML), spp=4, width=128, height=72)
+    frame_out, dt, rate, launches = timed_frames(
+        tp, "16", {"closest": per_chunk, "anyhit": 0, "fetch": 0}, n_frames=1, warmup=warm,
+        depth_cap=TEAPOT_DEPTH)
+    rgb = frame_out["rgb"].cpu().numpy()
+    np.save(OUT_DIR / "teapot_volpath_rgb.npy", rgb)
+    # a profiled 4 spp frame at the declared resolution (4 of the 113
+    # chunks: the 16 spp frame's 333,566 launches took 147 s to profile)
+    part = tp.replace(spp=4)
+
+    def part_frame():
+        driver.render(part, seed=12, chunk_size=BENCH_CHUNK, depth_cap=TEAPOT_DEPTH,
+                      progress=quiet)
+
+    t0 = time.perf_counter()
+    part_frame()
+    torch.cuda.synchronize()
+    part_s = time.perf_counter() - t0
+    prof = try_profile(part_frame, part_s, "16", "profile_teapot.txt",
+                       closest_per_chunk=per_chunk)
+    by_segment = prof and prof["closest_ms_by_segment"]
+    phase("16", "teapot closest-hit device time per launch by its place in the chunk (ms): "
+                + (", ".join(f"{k} {v:.4f}" for k, v in by_segment.items()) if by_segment
+                   else "not measured"))
+    # the media's pixels against the same render with the media's scale 0
+    small = load_and_compile(str(TEAPOT_XML), spp=16, width=160, height=90)
+    clear = replace_leaves(small, {"medium_scale": small.media.scale * 0.0})
+    a, b = (driver.render(s, seed=3, depth_cap=TEAPOT_DEPTH, progress=quiet)["rgb"].cpu().numpy()
+            for s in (small, clear))
+    masks = medium_masks(small)
+    diff = {m: float(np.abs(a - b)[mk].mean() / max(np.abs(b)[mk].mean(), 1e-12))
+            for m, mk in masks.items()}
+    checks = {"finite": bool(np.isfinite(rgb).all()), "non_negative": bool(rgb.min() >= 0.0),
+              "lit": bool(rgb.mean() > 0.05),
+              **{f"medium_{m}_pixels": int(mk.sum()) > 20 for m, mk in masks.items()},
+              **{f"medium_{m}_changes_its_pixels": d > 0.05 for m, d in diff.items()}}
+    phase("16", f"teapot image mean {rgb.mean(axis=(0, 1)).tolist()}; 160x90 16 spp against "
+                f"the media at scale 0, mean relative change over each medium's pixels "
+                f"{diff} ({ {m: int(mk.sum()) for m, mk in masks.items()} } pixels); "
+                f"checks {checks}")
+    if not all(checks.values()):
+        fail(f"phase 16: teapot image checks failed {checks}")
+    small_cpu = load_and_compile(str(TEAPOT_XML), spp=4, width=64, height=36, device="cpu")
+    out["teapot"] = {"frame_s": dt, "rays_per_s": rate, "launches": launches,
+                     "spp16_frame_s": part_s, "spp16_profile": prof,
+                     "closest_ms_by_segment": by_segment, "media_change": diff,
+                     "cuda_vs_cpu": cuda_vs_cpu(small_cpu, "16", CPU_CHECK_DEPTH)}
+
+    # ---- (b) the grid-volume scene at the benchmark spec
+    t0 = time.perf_counter()
+    vol_xml = volume_assets.prepared(VOLUME_BUILD)
+    vol = load_and_compile(str(vol_xml))
+    phase("16", f"volume {vol_xml.relative_to(ROOT)}: {vol.n_faces} faces, grid "
+                f"{vol.volume_meta[0][1:4]}, {vol.volumes.shape[0]} density texels; assets and "
+                f"compile {time.perf_counter() - t0:.2f} s")
+    warm = vol.replace(spp=1, film_width=64, film_height=64)
+    frame_out, dt_v, rate_v, launches_v = timed_frames(
+        vol, "16", {"closest": 1 + 5 * BENCH_DEPTH, "anyhit": 0, "fetch": 0}, n_frames=1,
+        warmup=warm)
+    rgb_v = frame_out["rgb"].cpu().numpy()
+    np.save(OUT_DIR / "volume_rgb.npy", rgb_v)
+    checks = {"finite": bool(np.isfinite(rgb_v).all()), "non_negative": bool(rgb_v.min() >= 0),
+              "lit": bool(rgb_v.mean() > 0.05)}
+    phase("16", f"volume image mean {rgb_v.mean(axis=(0, 1)).tolist()}; checks {checks}")
+    if not all(checks.values()):
+        fail(f"phase 16: volume image checks failed {checks}")
+    # the kernel launches of one chunk (64x64 x 16 spp, one chunk: a chunk's
+    # launches do not depend on its lanes), times 4 chunks for the frame
+    one = load_and_compile(str(vol_xml), spp=16, width=64, height=64)
+    t0 = time.perf_counter()
+    frame(one)()
+    torch.cuda.synchronize()
+    prof_v = try_profile(frame(one), time.perf_counter() - t0, "16", "profile_volume.txt",
+                         what="chunk")
+    out["volume"] = {"frame_s": dt_v, "rays_per_s": rate_v, "launches": launches_v,
+                     "chunk_profile": prof_v,
+                     "cuda_vs_cpu": cuda_vs_cpu(load_and_compile(
+                         str(vol_xml), spp=4, width=64, height=64, device="cpu"), "16")}
+
+    # ---- (c) media gradients, then the same gradients on the CPU
+    tg = load_and_compile(str(TEAPOT_XML), spp=BENCH_SPP, width=BENCH_W, height=BENCH_H)
+    media_names = ("sigma_s_amp", "sigma_a_amp", "medium_scale")
+    out["teapot_gradient"] = media_gradient(tg, media_names, "teapot", GRAD_CHUNK, media_names)
+    side = int(np.sqrt(VOL_GRAD_LANES // 16))
+    vg = load_and_compile(str(vol_xml), spp=16, width=side, height=side)
+    out["volume_gradient"] = media_gradient(vg, ("volumes",), "volume", VOL_GRAD_LANES,
+                                            ("volumes",))
+    l1, anatomy = {}, {}
+    for label, xml, names in (("teapot", TEAPOT_XML, media_names),
+                              ("volume", vol_xml, ("volumes",))):
+        sc = load_and_compile(str(xml), spp=16, width=64, height=36, device="cpu")
+        t0 = time.perf_counter()
+        (_, rgb_a, g_a), (_, rgb_b, g_b) = (
+            image_grads(s, names, lambda r: r.mean(), seed=7, depth_cap=CPU_CHECK_DEPTH)
+            for s in (sc, sc.to("cuda")))
+        l1[label] = {k: rel_l1(g_b[k], g_a[k]) for k in names}
+        # where a gap comes from: pixels that differ (a lane whose sampling
+        # went elsewhere), and how much of the L1 its 10 largest entries hold
+        rel = ((rgb_b.cpu() - rgb_a).abs() / rgb_a.abs().clamp(min=1e-3)).amax(dim=-1)
+        diff = torch.cat([(g_b[k].cpu() - g_a[k]).abs().reshape(-1) for k in names])
+        anatomy[label] = {"s": time.perf_counter() - t0,
+                          "pixels_off_1e-4": int((rel > 1e-4).sum()),
+                          "image_l1": rel_l1(rgb_b, rgb_a),
+                          "top10_share": float(diff.topk(min(10, diff.numel())).values.sum()
+                                               / diff.sum().clamp(min=1e-30))}
+    checks = {f"{label}_{k}": v < 1e-4 for label, r in l1.items() for k, v in r.items()}
+    phase("16", f"64x36 16 spp gradients (depth cap {CPU_CHECK_DEPTH}) CUDA vs CPU relative L1 "
+                f"{l1}; anatomy {anatomy}; "
+                f"checks {checks}")
+    if not all(checks.values()):
+        fail(f"phase 16: media gradients CUDA vs CPU {l1}")
+    out["gradient_cuda_vs_cpu_l1"] = l1
+    out["gradient_cuda_vs_cpu_anatomy"] = anatomy
+    return out
 
 
 def run_bench():
@@ -1172,10 +1517,11 @@ def main():
         # shapes: Mesh000 the stand, Mesh001 and Mesh003 the ball, Mesh002
         # the core, then the floor
         ball_checks(tb, rgb, [(1, 3)], 4, "10")
-        # device busy share from a 16 spp frame at the declared resolution
-        # (15 of the frame's 113 chunks: profiling all 113 chunks' ~1M
-        # launches costs minutes), against the same frame unprofiled
-        part = tb.replace(spp=16)
+        # device busy share from a 4 spp frame at the declared resolution
+        # (4 of the frame's 113 chunks: profiling costs about 0.4 ms a
+        # launch, 110k-174k launches at 16 spp), against the same frame
+        # unprofiled
+        part = tb.replace(spp=4)
         t0 = time.perf_counter()
         driver.render(part, seed=12, chunk_size=BENCH_CHUNK, depth_cap=BENCH_DEPTH,
                       progress=quiet)
@@ -1198,6 +1544,9 @@ def main():
     # gradient, the backward kernel
     train = phase_train()
     grad = phase_envlit_grad(envlit_xml, envlit)
+
+    # ---- phase 16: volpath — the teapot stand-in, the grid volume, media gradients
+    volpath = phase_volpath()
     bench = run_bench()
 
     main_case = report["cbox_camera"]
@@ -1207,7 +1556,9 @@ def main():
                  **{fig: (b["launches"], 1) for fig, b in balls.items()},
                  **{path: (r["launches"], N_FRAMES) for path, r in new_paths.items()},
                  "cbox_train_step": (train["launches"], train["frames"]),
-                 "envlit_gradient": (grad["launches"], grad["frames"])}
+                 "envlit_gradient": (grad["launches"], grad["frames"]),
+                 **{run: (volpath[run]["launches"], 1) for run in
+                    ("teapot", "volume", "teapot_gradient", "volume_gradient")}}
 
     def launches(key):
         return sum(counts.get(key, 0) for counts, _ in main_runs.values())
@@ -1295,7 +1646,7 @@ def main():
          "testballs": balls,
          **{path: {**r, "profile": new_profiles[path]} for path, r in new_paths.items()},
          "checkpoint": checkpoint, "cbox_train": train, "envlit_gradient": grad,
-         "bench": bench}, indent=1))
+         "volpath": volpath, "bench": bench}, indent=1))
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name,
                                              "count": torch.cuda.device_count()}}), flush=True)
@@ -1311,12 +1662,14 @@ def frame(scene):
                           progress=quiet)
 
 
-def try_profile(run, run_s, label, table_name, what="frame"):
+def try_profile(run, run_s, label, table_name, what="frame", closest_per_chunk=None):
     """One call of `run` (a frame, or a gradient step) under torch.profiler:
     device time by kernel, the number of kernel launches, and the device's
-    busy share of an unprofiled call (`run_s`). The table goes to
-    chiprun_out/`table_name`. Returns the numbers, or None when the profiler
-    recorded no device time."""
+    busy share of an unprofiled call (`run_s`); with `closest_per_chunk`,
+    the closest-hit launches' times by their place in a volpath chunk
+    (`closest_by_segment`). The table goes to chiprun_out/`table_name`.
+    Returns the numbers, or None when the profiler recorded no device
+    time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1358,9 +1711,12 @@ def try_profile(run, run_s, label, table_name, what="frame"):
                  f"each; any hit {any_t:.4f} s over {n_any}, {cast_ms['anyhit']:.4f} ms each), "
                  f"texel fetch {fetch_t:.4f} s = {fetch_t / busy:.3f} over {n_fetch} launches, "
                  f"{fetch_ms:.4f} ms each; top: {top}")
-    return {"launches": launches, "busy_s": busy, "busy_share": busy / run_s,
-            "cluster_s": cluster_t, "cluster_share": cluster_t / busy, "fetch_s": fetch_t,
-            "fetch_launches": n_fetch, "fetch_ms_per_launch": fetch_ms, "cast_ms": cast_ms}
+    out = {"launches": launches, "busy_s": busy, "busy_share": busy / run_s,
+           "cluster_s": cluster_t, "cluster_share": cluster_t / busy, "fetch_s": fetch_t,
+           "fetch_launches": n_fetch, "fetch_ms_per_launch": fetch_ms, "cast_ms": cast_ms}
+    if closest_per_chunk is not None:
+        out["closest_ms_by_segment"] = closest_by_segment(prof.events(), closest_per_chunk)
+    return out
 
 
 if __name__ == "__main__":

@@ -9,8 +9,11 @@ Gradients follow misaki_tpu's **detached-sampling** convention:
     parameters (reflectance, radiance, Fresnel eta, microfacet alpha), blind
     to silhouettes.
   * MIS weights and the Russian-roulette q are detached
-    (render/integrator.py `sample_path`): pdf ratios whose gradient terms
-    cancel in expectation.
+    (render/integrator.py `sample_path`, `sample_volpath`): pdf ratios
+    whose gradient terms cancel in expectation. Nothing else is: under
+    volpath the sampled free-flight distances carry the sigma leaves'
+    gradient, as in misaki_tpu; a lane's scatter-or-escape decision is a
+    step in sigma that this pathwise gradient leaves out.
   * Microfacet alpha and the Disney slots carry gradients only under
     `scene.diff_mode` (bsdf/kernels.py). There sampling uses detached alpha
     and the rough lobes' weight is recomputed as

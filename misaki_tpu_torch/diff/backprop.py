@@ -48,7 +48,7 @@ def _sync(dev):
 def image_grads(scene, names, loss_fn, seed=0, depth_cap=4, chunk_size=GRAD_CHUNK,
                 stats=None):
     """-> (loss (0-d tensor), rgb (H, W, 3), {name: gradient of the loss})
-    for `loss_fn(rgb)` of the `path` or `direct` image of `scene`, with
+    for `loss_fn(rgb)` of the `path`, `direct` or `volpath` image of `scene`, with
     respect to the leaves `names` (misaki_tpu_torch.diff.DIFF_LEAVES). A
     frame of at most `chunk_size` lanes (rounded down to whole pixels, as
     `render()` does) is differentiated in one pass; a larger one takes a
@@ -59,7 +59,7 @@ def image_grads(scene, names, loss_fn, seed=0, depth_cap=4, chunk_size=GRAD_CHUN
     (0 in one pass) and of the render under autograd with its backward (the
     device synchronised at each end), the chunk and the chunk count of that
     render and, on CUDA, its peak device memory in bytes."""
-    if scene.integrator not in ("path", "direct"):
+    if scene.integrator not in ("path", "direct", "volpath"):
         raise NotImplementedError(f"gradients of the '{scene.integrator}' integrator")
     W, H, spp = scene.film_width, scene.film_height, scene.spp
     dev = scene.device

@@ -15,16 +15,16 @@ Leaves:
   rad_curve — (E, 95) emitter radiance curves on the CIE grid;
   env_rgb   — (He, We, 3) environment-map texels (the bilinear fetch is
               linear in them);
+  sigma_s_amp  — (M,) homogeneous-medium scattering amplitude;
+  sigma_a_amp  — (M,) absorption amplitude;
+  medium_scale — (M,) overall sigma scale (media/homogeneous.cpp `scale`);
   bitmaps   — (Npad, 3) texel-major table of every bitmap's mip chain
-              (misaki_tpu's (3, Npad) atlas transposed; no pages).
-
-The medium leaves of misaki_tpu (sigma_s_amp, sigma_a_amp, medium_scale,
-volumes) come with the volpath slice; asking for one raises.
+              (misaki_tpu's (3, Npad) atlas transposed; no pages);
+  volumes   — (Npad,) grid-volume density table (misaki_tpu's (1, Npad)
+              row flattened; the trilinear taps are linear in it).
 """
 
 from dataclasses import replace as dc_replace
-
-MEDIA_LEAVES = ("sigma_s_amp", "sigma_a_amp", "medium_scale", "volumes")
 
 
 def _rep_materials(scene, v):
@@ -38,20 +38,27 @@ def _rep_emitter(field):
     return rep
 
 
+def _rep_media(field):
+    def rep(scene, v):
+        return scene.replace(media=dc_replace(scene.media, **{field: v}))
+
+    return rep
+
+
 DIFF_LEAVES = {
     "materials": (lambda s: s.materials.params, _rep_materials),
     "rad_coeff": (lambda s: s.emitters.rad_coeff, _rep_emitter("rad_coeff")),
     "rad_curve": (lambda s: s.emitters.rad_curve, _rep_emitter("rad_curve")),
     "env_rgb": (lambda s: s.emitters.env_rgb, _rep_emitter("env_rgb")),
+    "sigma_s_amp": (lambda s: s.media.sigma_s_amp, _rep_media("sigma_s_amp")),
+    "sigma_a_amp": (lambda s: s.media.sigma_a_amp, _rep_media("sigma_a_amp")),
+    "medium_scale": (lambda s: s.media.scale, _rep_media("scale")),
     "bitmaps": (lambda s: s.bitmaps, lambda s, v: s.replace(bitmaps=v)),
+    "volumes": (lambda s: s.volumes, lambda s, v: s.replace(volumes=v)),
 }
 
 
 def _entry(name):
-    if name in MEDIA_LEAVES:
-        raise NotImplementedError(
-            f"leaf '{name}' is a participating-medium parameter: media come with the "
-            "volpath slice of the port")
     if name not in DIFF_LEAVES:
         raise KeyError(f"unknown leaf '{name}'; leaves: {', '.join(DIFF_LEAVES)}")
     return DIFF_LEAVES[name]

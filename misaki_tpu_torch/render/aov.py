@@ -45,8 +45,8 @@ def n_channels(scene):
 
 def chunk_columns(scene, ray, state, depth_cap):
     """-> (the AOV columns of the chunk's lanes in spec order, then the
-    nested integrator's XYZ (`scene.aov_nested`: path or direct; volpath
-    raises NotImplementedError), state)."""
+    nested integrator's XYZ (`scene.aov_nested`: path, direct or volpath),
+    state)."""
     aovs, state = integ.sample_aovs(scene, ray, state)
     cols = ()
     for _, kind in parse_aov_spec(scene.aovs):

@@ -164,3 +164,13 @@ def compute_interaction(scene, hit, o, d, wavelengths, fd=None, ray_diff=None):
 def spawn_ray_mint(p):
     """Origin offset epsilon (interaction.h spawn_ray:40-44)."""
     return (1.0 + vec.max_abs(p)) * m.RayEpsilon
+
+
+def target_medium(si, d, current):
+    """SceneInteraction::target_medium (interaction.cpp:11-13): the medium on
+    the side of the surface that direction `d` points into, exterior when
+    d.n > 0 and interior otherwise. Lanes without a transition keep
+    `current`."""
+    transition = (si["med_int"] >= 0) | (si["med_ext"] >= 0)
+    tgt = torch.where(vec.dot(d, si["ng"]) > 0.0, si["med_ext"], si["med_int"])
+    return torch.where(si["valid"] & transition, tgt, current)

@@ -9,6 +9,7 @@ from misaki_tpu_torch.scene.types import (
     EmitterTable,
     Geometry,
     MaterialTable,
+    MediumTable,
 )
 
 
@@ -20,7 +21,8 @@ def from_compiled(arrays, device="cuda"):
     that raises (as `compile_scene` does). The cluster accel is built
     here from the first `n_faces` geometry columns, since the JAX scene holds
     none for small scenes. The env and bitmap tables are taken flat (the
-    bitmap atlas transposed to texel-major), never from the JAX pages.
+    bitmap atlas transposed to texel-major), never from the JAX pages; the
+    (1, Npad) volume row becomes the flat (Npad,) table.
     Takes the object by duck typing: this package never imports the JAX
     one."""
     from misaki_tpu_torch.scene.compiler import cluster_from_geometry, target_device
@@ -43,6 +45,15 @@ def from_compiled(arrays, device="cuda"):
         env_cond_cdf=a(em.env_cond_cdf, np.float32),
         env_to_world=a(em.env_to_world, np.float32),
         env_to_local=a(em.env_to_local, np.float32),
+    )
+    med = arrays.media
+    media = MediumTable(
+        kind=a(med.kind, np.int32), sigma_s=a(med.sigma_s, np.float32),
+        sigma_a=a(med.sigma_a, np.float32), sigma_s_coeff=a(med.sigma_s_coeff, np.float32),
+        sigma_a_coeff=a(med.sigma_a_coeff, np.float32),
+        sigma_s_amp=a(med.sigma_s_amp, np.float32), sigma_a_amp=a(med.sigma_a_amp, np.float32),
+        scale=a(med.scale, np.float32), g=a(med.g, np.float32),
+        density_vol=a(med.density_vol, np.int32),
     )
     scene = CompiledScene(
         geometry=geom,
@@ -69,6 +80,8 @@ def from_compiled(arrays, device="cuda"):
         direct_light_samples=arrays.direct_light_samples,
         direct_bsdf_samples=arrays.direct_bsdf_samples,
         diff_mode=bool(getattr(arrays, "diff_mode", False)),
+        media=media, volumes=a(arrays.volumes, np.float32).reshape(-1),
+        volume_meta=tuple(arrays.volume_meta),
     )
     return scene.to(device)
 
@@ -77,13 +90,26 @@ def leaves_from_jax(values):
     """`misaki_tpu` parameter leaves {name: numpy array}, in its layout,
     -> the same values in the port's layout (numpy): every leaf as it is but
     `bitmaps`, whose (3, Npad) atlas becomes the texel-major (Npad, 3)
-    table, the transpose `from_compiled` takes."""
-    return {k: np.ascontiguousarray(np.asarray(v, np.float32).T) if k == "bitmaps"
-            else np.asarray(v) for k, v in values.items()}
+    table, and `volumes`, whose (1, Npad) row becomes the flat (Npad,)
+    table, as `from_compiled` takes them."""
+    def port(k, v):
+        if k == "bitmaps":
+            return np.ascontiguousarray(np.asarray(v, np.float32).T)
+        if k == "volumes":
+            return np.asarray(v, np.float32).reshape(-1)
+        return np.asarray(v)
+
+    return {k: port(k, v) for k, v in values.items()}
 
 
 def grads_to_jax(grads):
     """The port's leaf gradients {name: tensor} -> numpy arrays in
     `misaki_tpu`'s layout (the inverse of `leaves_from_jax`)."""
-    out = {k: g.detach().cpu().numpy() for k, g in grads.items()}
-    return {k: np.ascontiguousarray(g.T) if k == "bitmaps" else g for k, g in out.items()}
+    def jax_layout(k, g):
+        if k == "bitmaps":
+            return np.ascontiguousarray(g.T)
+        if k == "volumes":
+            return g.reshape(1, -1)
+        return g
+
+    return {k: jax_layout(k, g.detach().cpu().numpy()) for k, g in grads.items()}

@@ -22,6 +22,9 @@ BSDF_NULL = 5
 BSDF_PLASTIC = 6
 BSDF_DISNEY = 7
 
+# Medium kinds
+MED_HOMOGENEOUS = 0
+
 # Emitter kinds
 EM_AREA = 0
 EM_CONSTANT = 1
@@ -181,6 +184,34 @@ class EmitterTable(_Tables):
 
 
 @dataclass(frozen=True)
+class MediumTable(_Tables):
+    """Homogeneous media (media/homogeneous.cpp), one row per medium, with
+    an optional density grid each."""
+
+    kind: Any           # (M,) int32
+    sigma_s: Any        # (M, 3) float32 — raw RGB (kept for reference/debug)
+    sigma_a: Any        # (M, 3)
+    sigma_s_coeff: Any  # (M, 3) sigmoid coeffs of sigma_s / sigma_s_amp
+    sigma_a_coeff: Any  # (M, 3)
+    sigma_s_amp: Any    # (M,) float32 — amplitude (the sigmoid spans [0, 1])
+    sigma_a_amp: Any    # (M,)
+    scale: Any          # (M,) float32
+    g: Any              # (M,) float32 — HG phase anisotropy (0 = isotropic)
+    # index into CompiledScene.volume_meta (-1 = constant density 1; a
+    # constvolume folds into `scale` at compile)
+    density_vol: Any
+
+
+def empty_media():
+    """The media table of a scene without media (M = 0)."""
+    z1, z3 = np.zeros(0, np.float32), np.zeros((0, 3), np.float32)
+    return MediumTable(kind=np.zeros(0, np.int32), sigma_s=z3, sigma_a=z3,
+                       sigma_s_coeff=z3, sigma_a_coeff=z3, sigma_s_amp=z1,
+                       sigma_a_amp=z1, scale=z1, g=z1,
+                       density_vol=np.zeros(0, np.int32))
+
+
+@dataclass(frozen=True)
 class Camera(_Tables):
     to_world: Any          # (4, 4) float32
     sample_to_camera: Any  # (4, 4) float32
@@ -240,6 +271,13 @@ class CompiledScene(_Tables):
     # the Disney slots carry gradients only when set; training flips it with
     # scene.replace(diff_mode=True)
     diff_mode: bool = False
+    # participating media (misaki_tpu/scene/types.py:218-235) and the grid
+    # volumes: every density grid flattened into one (Npad,) float32 table
+    # (misaki_tpu's (1, Npad) row), volume_meta a static tuple of (offset,
+    # W, H, D, world_to_unit 12 floats of a row-major 3x4) per volume
+    media: Any = field(default_factory=empty_media)
+    volumes: Any = field(default_factory=lambda: np.zeros(8, np.float32))
+    volume_meta: tuple = ()
     device: Any = field(default=torch.device("cpu"))
 
     def to(self, device):

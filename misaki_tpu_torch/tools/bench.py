@@ -13,6 +13,9 @@ later failure cannot lose it; then one JSON line {"extra": {...},
     debug integrator: one camera ray per sample), 15 frames;
   * figure2_roughconductor_rays_per_s: scenes/testball/roughconductor.xml
     at 320x180, 16 spp, 4 bounce iterations, 3 frames;
+  * teapot_volpath_rays_per_s: scenes/teapot/scene.xml (the volpath
+    integrator, glass and two homogeneous media) at 320x180, 16 spp, 4
+    bounce iterations, 3 frames;
   * cuda_cpu_parity: a 64x48, 16 spp cbox render on the card and on the CPU
     (relative difference of the image means < 0.5%, relative L1 < 2%).
 
@@ -23,7 +26,8 @@ max_depth unbounded.
 
 Rays are counted as bench.py counts them: per sample 1 camera ray plus a
 closest-hit and a shadow ray per bounce iteration, whether or not the lane
-is still active. Each rate is timed over frames of varied seeds after a
+is still active; volpath casts four transmittance segments and the next
+closest hit per iteration. Each rate is timed over frames of varied seeds after a
 warm-up frame, the host clock ended by torch.cuda.synchronize(). `device` is
 the line `nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`
 prints.
@@ -52,9 +56,10 @@ def device_line(device):
 def rays_per_sample(scene, depth_cap):
     """Rays cast per sample: debug the camera ray; direct the camera ray, a
     shadow ray per emitter sample and a ray per BSDF sample; path the camera
-    ray and two per bounce iteration; aov its own camera ray and those of
-    the nested integrator."""
-    from misaki_tpu_torch.render.integrator import n_bounce_iters
+    ray and two per bounce iteration; volpath the camera ray and five per
+    iteration (four transmittance segments, then the next cast); aov its
+    own camera ray and those of the nested integrator."""
+    from misaki_tpu_torch.render.integrator import n_bounce_iters, volpath_iters
 
     if scene.integrator == "debug":
         return 1
@@ -62,6 +67,8 @@ def rays_per_sample(scene, depth_cap):
         return 1 + max(scene.direct_light_samples, 1) + max(scene.direct_bsdf_samples, 1)
     if scene.integrator == "aov":
         return 1 + rays_per_sample(scene.replace(integrator=scene.aov_nested), depth_cap)
+    if scene.integrator == "volpath":
+        return 1 + 5 * volpath_iters(scene, depth_cap)
     return 1 + 2 * n_bounce_iters(scene, depth_cap)
 
 
@@ -69,6 +76,8 @@ def rays_per_sample(scene, depth_cap):
 EXTRAS = (
     ("bunny_debug_rays_per_s", "bunny_debug.xml", 15, 4, {}),
     ("figure2_roughconductor_rays_per_s", "testball/roughconductor.xml", 3, 4,
+     dict(spp=16, width=320, height=180)),
+    ("teapot_volpath_rays_per_s", "teapot/scene.xml", 3, 4,
      dict(spp=16, width=320, height=180)),
 )
 

@@ -21,9 +21,11 @@ import numpy as np
 import pytest
 import torch
 
-from torch_helpers import CBOX_XML, n, t
+from test_grid_volume import CUBE_OBJ, SCENE_XML as GRID_XML
+from torch_helpers import CBOX_XML, SCENES, n, t
 
 from misaki_tpu.diff import get_leaves as jget
+from misaki_tpu.diff import leaf_names as jleaf_names
 from misaki_tpu.diff import replace_leaves as jreplace
 from misaki_tpu.parallel import sharding as jsharding
 from misaki_tpu.render.driver import render as jrender
@@ -38,6 +40,8 @@ from misaki_tpu_torch.scene.types import MC_ALPHA_U, MC_ALPHA_V, MC_ETA
 
 REL_L1 = 5e-3
 REL_L1_BITMAPS = 2e-2
+TEAPOT_XML = SCENES / "teapot" / "scene.xml"
+MEDIA_LEAVES = ("sigma_s_amp", "sigma_a_amp", "medium_scale", "volumes")
 
 ENV_XML = """<scene version="0.6.0">
   <integrator type="path"><integer name="max_depth" value="2"/></integrator>
@@ -219,13 +223,33 @@ def cases(tmp_path_factory):
     leaves["rad_curve"] = leaves["rad_curve"] * rs.uniform(0.8, 1.2, leaves["rad_curve"].shape)
     leaves["rad_coeff"] = live_coeff(rs, js.n_emitters)
     out["cbox"] = Case(js, DEFAULT_TRAIN_LEAVES, leaves, seed=0, depth_cap=2)
+    # volpath: the teapot stand-in's two media at seeded amplitudes and
+    # scales, and the grid slab of tests/test_grid_volume.py with spectral
+    # sigma_a (tests/test_diff_leaves.py:177-240) at its compiled densities
+    # (k + 0.5) / 8, which bfloat16 holds exactly
+    js = jload(str(TEAPOT_XML), spp=4, width=16, height=12)
+    leaves = {k: np.asarray(v) * rs.uniform(0.8, 1.2, np.shape(v))
+              for k, v in jget(js, MEDIA_LEAVES[:3]).items()}
+    out["teapot_media"] = Case(js, MEDIA_LEAVES[:3], leaves, seed=1, depth_cap=3)
+    (tmp / "cube.obj").write_text(CUBE_OBJ)
+    x = (np.arange(8) + 0.5) / 8
+    np.save(tmp / "grid.npy", np.broadcast_to(x[None, None, :], (8, 8, 8)).astype(np.float32))
+    xml = (GRID_XML % {"sa": 4.0}).replace('value="4.0, 4.0, 4.0"', 'value="2.0, 4.0, 8.0"')
+    (tmp / "grid.xml").write_text(xml)
+    js = jload(str(tmp / "grid.xml"), spp=4, width=16, height=12)
+    out["grid"] = Case(js, ("volumes",), {"volumes": np.asarray(js.volumes)}, seed=2,
+                       depth_cap=3)
     return out
 
 
-@pytest.mark.parametrize("name", ["env", "bitmap", "roughconductor", "roughdielectric", "cbox"])
+@pytest.mark.parametrize("name", ["env", "bitmap", "roughconductor", "roughdielectric", "cbox",
+                                  "teapot_media", "grid"])
 def test_grads_match_jax(cases, name, capsys):
     """Every leaf's gradient against jax.grad of the same render, and every
-    gradient finite; prints each leaf's relative L1."""
+    gradient finite; prints each leaf's relative L1. `volumes` is held to
+    the bitmaps' bound: misaki_tpu's density fetch takes bfloat16 operands
+    (misaki_tpu/render/medium.py:140, `table.fetch_lowp`), so its cotangent
+    into the grid is rounded to bfloat16, the port's is float32."""
     case = cases[name]
     want = case.jax_grads()
     _, got = case.port()
@@ -237,7 +261,7 @@ def test_grads_match_jax(cases, name, capsys):
         assert got[k].shape == want[k].shape, k
         assert np.isfinite(got[k]).all(), k
         assert np.abs(want[k]).sum() > 0, k
-        bound = REL_L1_BITMAPS if k == "bitmaps" else REL_L1
+        bound = REL_L1_BITMAPS if k in ("bitmaps", "volumes") else REL_L1
         assert errs[k] <= bound, f"{name} {k}: relative L1 {errs[k]:.3e} > {bound}"
 
 
@@ -273,6 +297,69 @@ def test_reflectance_gradient_matches_fd(cases):
     expected = float(np.sum(gm.astype(np.float64) * dc))
     assert expected > 0
     assert abs(fd - expected) <= 0.1 * max(abs(fd), abs(expected)), (fd, expected)
+
+
+@pytest.mark.parametrize("leaf", MEDIA_LEAVES)
+def test_media_gradient_matches_fd(cases, leaf):
+    """Each media leaf's autograd gradient against a directional central
+    difference along sign(g), within 10%, on the medium's transmittance:
+    the sum of `_attenuated_transmittance` over shadow rays crossing the
+    teapot's media (the amplitudes and scales), and of `transmittance_ray`
+    through the grid slab (the densities). A frame is no such check: at a
+    fixed seed its estimator is piecewise constant in sigma (a lane's
+    scatter-or-escape decision flips), and the pathwise gradient, which
+    misaki_tpu takes too, leaves the flips out (tests/test_diff_leaves.py:
+    177-190)."""
+    from misaki_tpu_torch.render import integrator as pinteg
+    from misaki_tpu_torch.render import medium as pmed
+
+    case = cases["grid" if leaf == "volumes" else "teapot_media"]
+    rs = np.random.default_rng(12)
+    L = 2048
+    wav = t(rs.uniform(360.0, 830.0, (4, L)).astype(np.float32))
+    if leaf == "volumes":
+        o = (t(np.full(L, -0.2, np.float32)), t(rs.uniform(0.1, 0.9, L).astype(np.float32)),
+             t(rs.uniform(0.1, 0.9, L).astype(np.float32)))
+        d = (torch.ones(L), torch.zeros(L), torch.zeros(L))
+        ids = torch.zeros(L, dtype=torch.int32)
+
+        def f(sc):
+            mp = pmed.fetch_medium(sc, ids, wav)
+            return pmed.transmittance_ray(sc, mp, ids, o, d, torch.full((L,), 1.6)).sum()
+    else:
+        # from around each medium toward the far side of it, starting in it
+        centre = np.array([[0.0, 1.0, 0.0], [1.9, 0.6, 0.6]])[rs.integers(0, 2, L)]
+        radius = np.where(centre[:, 0] > 1.0, 0.6, 1.0)[:, None]
+        a = rs.normal(size=(L, 3))
+        b = rs.normal(size=(L, 3))
+        p = centre + 0.8 * radius * a / np.linalg.norm(a, axis=1, keepdims=True)
+        q = centre + 0.8 * radius * b / np.linalg.norm(b, axis=1, keepdims=True)
+        dist = np.linalg.norm(q - p, axis=1)
+        dn = (q - p) / dist[:, None]
+        ids = t(np.where(centre[:, 0] > 1.0, 1, 0).astype(np.int32))
+        pt = tuple(t(c.astype(np.float32)) for c in p.T)
+        dt = tuple(t(c.astype(np.float32)) for c in dn.T)
+
+        def f(sc):
+            return pinteg._attenuated_transmittance(sc, pt, dt, t(dist.astype(np.float32)),
+                                                    ids, wav).sum()
+
+    v0 = {leaf: t(leaves_from_jax({leaf: case.values[leaf]})[leaf])}
+    x = v0[leaf].clone().requires_grad_()
+    f(replace_leaves(case.ps, {leaf: x})).backward()
+    g = n(x.grad).astype(np.float64)
+    assert np.isfinite(g).all() and np.abs(g).sum() > 0
+    step = np.sign(g) * (0.01 if leaf == "volumes" else 0.01 * np.abs(n(v0[leaf])))
+
+    def at(sign):
+        with torch.no_grad():
+            v = t((n(v0[leaf]) + sign * step).astype(np.float32))
+            return float(f(replace_leaves(case.ps, {leaf: v})))
+
+    fd = (at(1) - at(-1)) / 2.0
+    expected = float(np.sum(g * step))
+    assert expected > 0
+    assert abs(fd - expected) <= 0.1 * abs(expected), (fd, expected)
 
 
 def test_alpha_gradient_only_in_diff_mode(cases):
@@ -367,10 +454,12 @@ def test_train_step_matches_sharded(cases):
 
 
 def test_leaf_registry(cases):
-    """The port's leaves, their layouts in both packages, and the medium
-    leaves left to the volpath slice."""
+    """The port's leaves (misaki_tpu's nine, in its order) and their layouts
+    in both packages."""
     ps, js = cases["bitmap"].ps, cases["bitmap"].js
-    assert leaf_names() == ("materials", "rad_coeff", "rad_curve", "env_rgb", "bitmaps")
+    assert leaf_names() == jleaf_names() == (
+        "materials", "rad_coeff", "rad_curve", "env_rgb", "sigma_s_amp", "sigma_a_amp",
+        "medium_scale", "bitmaps", "volumes")
     mine = get_leaves(ps, leaf_names())
     theirs = {k: np.asarray(v) for k, v in jget(js, leaf_names()).items()}
     for k, v in leaves_from_jax(theirs).items():
@@ -381,9 +470,10 @@ def test_leaf_registry(cases):
     back = grads_to_jax({k: t(v) for k, v in leaves_from_jax(theirs).items()})
     for k, v in theirs.items():
         np.testing.assert_array_equal(back[k], v)
-    for k in ("sigma_s_amp", "sigma_a_amp", "medium_scale", "volumes"):
-        with pytest.raises(NotImplementedError, match="volpath"):
-            get_leaves(ps, (k,))
+    # the media leaves of a scene without media: empty tables, a stub grid
+    for k in ("sigma_s_amp", "sigma_a_amp", "medium_scale"):
+        assert tuple(mine[k].shape) == (0,), k
+    assert tuple(mine["volumes"].shape) == (8,)
     with pytest.raises(KeyError):
         get_leaves(ps, ("nope",))
     assert ps.diff_mode is False and ps.replace(diff_mode=True).diff_mode is True

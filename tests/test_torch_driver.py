@@ -281,6 +281,10 @@ def test_bench_prints_headline_first(capsys, monkeypatch):
     assert bench.rays_per_sample(debug, 4) == 1
     assert bench.rays_per_sample(direct, 4) == 5
     assert bench.rays_per_sample(direct.replace(integrator="path", max_depth=5), 4) == 9
+    # volpath: the camera ray, then 4 transmittance segments and the next
+    # cast per iteration, max_depth iterations where it is set, else the cap
+    assert bench.rays_per_sample(direct.replace(integrator="volpath", max_depth=-1), 8) == 41
+    assert bench.rays_per_sample(direct.replace(integrator="volpath", max_depth=3), 8) == 16
 
     # the extras' frames stood in by one second each: what is timed, at which cap
     caps = []
@@ -299,6 +303,7 @@ def test_bench_prints_headline_first(capsys, monkeypatch):
         lines = capsys.readouterr().out.splitlines()
         assert json.loads(lines[0])["metric"] == "cbox_4bounce_rays_per_s"
         extras[depth] = json.loads(lines[1])["extra"]
-        assert caps == [depth, 4, 4]
+        assert caps == [depth, 4, 4, 4]
     assert extras[2] == extras[4]
     assert extras[2]["figure2_roughconductor_rays_per_s"] == 320 * 180 * 16 * 9
+    assert extras[2]["teapot_volpath_rays_per_s"] == 320 * 180 * 16 * 21

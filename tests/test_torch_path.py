@@ -250,5 +250,10 @@ def test_seed_changes_noise(cbox_small):
 
 
 def test_unported_integrator_raises(cbox_small):
-    with pytest.raises(NotImplementedError, match="volpath"):
-        pdriver.render(cbox_small.replace(integrator="volpath"), depth_cap=1)
+    """sppm and photonmapper raise with their name; volpath, which raised
+    before the port carried media, renders cbox (no media) finite and lit."""
+    for integrator in ("sppm", "photonmapper"):
+        with pytest.raises(NotImplementedError, match=integrator):
+            pdriver.render(cbox_small.replace(integrator=integrator), depth_cap=1)
+    out = pdriver.render(cbox_small.replace(integrator="volpath"), depth_cap=1)
+    assert torch.isfinite(out["rgb"]).all() and float(out["rgb"].mean()) > 0.01

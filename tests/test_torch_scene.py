@@ -119,22 +119,34 @@ def test_every_scene_gets_clusters():
 @pytest.mark.parametrize("plugin,xml", [
     ("homogeneous", '<medium type="homogeneous" name="interior"/>'),
     ("volpath", None),
+    ("sppm", None),
+    ("photonmapper", None),
 ])
 def test_unported_plugins_raise(plugin, xml):
-    """What the port does not carry yet raises with the plugin's name: a
-    medium when the scene compiles, an integrator other than `path` when it
-    renders."""
+    """What the port does not carry yet raises with the plugin's name when
+    the scene renders: the `sppm` and `photonmapper` integrators. A medium
+    and the `volpath` integrator, which raised before the port carried
+    media, compile like misaki_tpu's and render."""
     text = open(FURNACE_XML).read()
-    if plugin == "volpath":
-        text = text.replace('<integrator type="path"/>', '<integrator type="volpath"/>')
+    if xml is None:
+        text = text.replace('<integrator type="path"/>', f'<integrator type="{plugin}"/>')
         scene = compile_scene(load_string(text), spp=1, width=4, height=4, device="cpu")
-        with pytest.raises(NotImplementedError, match=plugin):
-            render(scene, seed=0)
+        assert scene.integrator == plugin
+        if plugin == "volpath":
+            out = render(scene, seed=0, depth_cap=2)
+            assert torch.isfinite(out["rgb"]).all() and float(out["rgb"].mean()) > 0.1
+        else:
+            with pytest.raises(NotImplementedError, match=plugin):
+                render(scene, seed=0)
     else:
         text = text.replace('<float name="radius" value="1.0"/>',
                             '<float name="radius" value="1.0"/>' + xml)
-        with pytest.raises(NotImplementedError, match=plugin):
-            compile_scene(load_string(text), device="cpu")
+        ps = compile_scene(load_string(text), device="cpu")
+        js = jcompile(jload_string(text))
+        assert ps.media.kind.shape[0] == 1 and ps.aov_nested == js.aov_nested == "volpath"
+        np.testing.assert_array_equal(n(ps.geometry.face_tab), np.asarray(js.geometry.face_tab))
+        for f in ("kind", "sigma_s_coeff", "sigma_a_coeff", "scale", "density_vol"):
+            np.testing.assert_array_equal(n(getattr(ps.media, f)), np.asarray(getattr(js.media, f)))
 
 
 @pytest.mark.parametrize("plugin", ["roughconductor", "point"])
