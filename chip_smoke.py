@@ -5,8 +5,9 @@
 
 Phases, one line each; any failure exits non-zero:
   1. a CUDA device is present (name and power limit from nvidia-smi);
-  2. the kernels build from csrc/cluster.cu and csrc/texel_fetch.cu with
-     nvcc (sm_90a), one nvcc per source, started together;
+  2. the kernels build from csrc/cluster.cu, csrc/texel_fetch.cu and
+     csrc/ppm_density.cu with nvcc (sm_90a), one nvcc per source, started
+     together;
   3. each cluster kernel against its plain PyTorch twin on the card: the
      bunny stand-in (20,480 faces, 160 clusters; its accel's host build
      timed) with 2^20 camera-like and 2^20 random rays, the Cornell box with
@@ -80,7 +81,7 @@ Phases, one line each; any failure exits non-zero:
      (b) one image_grads of the image mean over bitmaps and env_rgb on
      envlit at the same spec: backward fetch launches equal the forward
      fetches, directional FDs within 5%, the same gradient on CUDA and on
-     the CPU at 64x48 x 16 spp (depth cap 2) within 1e-4 relative L1, and where that gap
+     the CPU at 48x36 x 8 spp (depth cap 2) within 1e-4 relative L1, and where that gap
      comes from (the plain twin's sums with the taps or the output
      gradients of one device and the rest of the other's); (c) the fetch's
      backward kernel against its index_add_ twin (allclose rtol 1e-5, atol
@@ -111,8 +112,31 @@ Phases, one line each; any failure exits non-zero:
      their activations), each with its time, peak memory and launches, a
      directional FD within 10% on the media's transmittance (where the
      estimator is smooth in the leaf; the image's FD is reported beside
-     it), and the same gradients on CUDA and on the CPU at 64x36 x 16 spp
+     it), and the same gradients on CUDA and on the CPU at 48x27 x 8 spp
      (depth cap 2) within 1e-4 relative L1;
+ 17. sppm and photonmapper (render/ppm.py): (a) cbox under sppm
+     (scenes/cbox/sppm.xml) at 256x256, 262,144 photons a pass, 8
+     iterations, depth budget 5, through render() on cuda: a small warm-up
+     frame, then 3 timed frames, seeds varied, launches checked against
+     ppm.launches_per_iteration (closest hit 10, any hit 5, density 4 an
+     iteration); seconds per frame, photons/s, iterations/s; image checks
+     (finite, red left, green right, alpha, the mean within 20% of a
+     256x256 64 spp path frame's and the luminance of 4x4-pixel means
+     correlated with it above 0.9, as tests/test_ppm.py compares them);
+     (b) the photonmapper (photonmapper.xml) the same way (10 / 0 / 5;
+     25% and 0.85); (c) envlit under sppm at 256x256, the same photons and
+     iterations: envmap photon emission, bitmap visible points, the texel
+     fetch's launches checked; (d) the gallery under sppm reduced to
+     128x128, 2^14 photons, 2 iterations: glossy visible points (the plain
+     pair path), point and constant-environment photons; (e) the density
+     kernel against its twin on frame (a)'s first splatted depth (262,144
+     photons against 65,536 visible points): counts equal, phi allclose
+     (rtol 1e-5, atol 1e-6 of the largest magnitude) in each of 10 calls,
+     the kernel's and the twin's device times and the bound; (f) a 64x48
+     cbox sppm render (8192 photons, 2 iterations) on cuda against the CPU;
+     (g) a cbox sppm render (128x128, 2^16 photons, 4 iterations) stopped
+     after iteration 3 and resumed from the per-iteration snapshot: equal
+     to the bit;
 then the port's bench (python -m misaki_tpu_torch.tools.bench), its lines
 printed with a "[bench]" prefix. Timed and profiled frames pass the bench's
 `quiet` progress callback, so the driver's progress log stays out of them.
@@ -149,6 +173,8 @@ N_FRAMES = 3
 # incoherent rays, and at depth 4 those halves took 141, 158 and 60 s of
 # the script's time limit
 CPU_CHECK_DEPTH = 2
+# photons a pass and iterations of phase 17's frames (scenes/cbox/sppm.xml)
+PPM_PHOTONS, PPM_ITERS = 262144, 8
 
 
 def fail(msg):
@@ -287,20 +313,24 @@ def compare_fetch(envlit):
 
 def reset_counts():
     from misaki_tpu_torch.accel import cluster as cl
+    from misaki_tpu_torch.render import ppm
     from misaki_tpu_torch.render import texel_fetch as tf
 
     cl.closest_launches = 0
     cl.anyhit_launches = 0
     tf.fetch_launches = 0
     tf.fetch_bwd_launches = 0
+    ppm.density_launches = 0
 
 
 def read_counts():
     from misaki_tpu_torch.accel import cluster as cl
+    from misaki_tpu_torch.render import ppm
     from misaki_tpu_torch.render import texel_fetch as tf
 
     return {"closest": cl.closest_launches, "anyhit": cl.anyhit_launches,
-            "fetch": tf.fetch_launches, "fetch_bwd": tf.fetch_bwd_launches}
+            "fetch": tf.fetch_launches, "fetch_bwd": tf.fetch_bwd_launches,
+            "density": ppm.density_launches}
 
 
 def timed_frames(scene, label, want_per_chunk, n_frames=N_FRAMES, warmup=None,
@@ -336,7 +366,8 @@ def timed_frames(scene, label, want_per_chunk, n_frames=N_FRAMES, warmup=None,
     dt = (time.perf_counter() - t0) / n_frames
     launches = read_counts()
     # a frame under inference_mode never launches the fetch's backward
-    want = {"fetch_bwd": 0, **{k: n_frames * n_chunks * v for k, v in want_per_chunk.items()}}
+    want = {"fetch_bwd": 0, "density": 0,
+            **{k: n_frames * n_chunks * v for k, v in want_per_chunk.items()}}
     rays_per_s = n_samples * per_sample / dt
     phase(label, f"{scene.film_width}x{scene.film_height} {scene.spp} spp, {scene.integrator}, "
                  f"{n_iters} bounce iterations, {per_sample} rays per sample: {dt:.4f} s/frame, "
@@ -356,8 +387,10 @@ def cuda_vs_cpu(scene_cpu, label, depth_cap=BENCH_DEPTH):
 
     res = cuda_cpu_parity(scene_cpu, depth_cap=depth_cap)
     ok = res.pop("ok")
+    samples = (f"{scene_cpu.ppm_photons} photons x {scene_cpu.ppm_iterations} iterations"
+               if scene_cpu.integrator in ("sppm", "photonmapper") else f"{scene_cpu.spp} spp")
     for name, r in res.items():
-        phase(label, f"{scene_cpu.film_width}x{scene_cpu.film_height} {scene_cpu.spp} spp "
+        phase(label, f"{scene_cpu.film_width}x{scene_cpu.film_height} {samples} "
                      f"cuda vs cpu, {name}: mean rel diff {r['mean_rel']:.3e}, relative L1 "
                      f"{r['l1_rel']:.3e}")
     if not ok:
@@ -694,7 +727,7 @@ def phase_train():
     n_iters = BENCH_DEPTH
     n_passes = primal_chunks(steps[0]) + steps[0]["chunks"]
     want = {"closest": n_passes * (1 + n_iters), "anyhit": n_passes * n_iters, "fetch": 0,
-            "fetch_bwd": 0}
+            "fetch_bwd": 0, "density": 0}
     checks = {"loss_falls": final < losses[0], "grads_finite": finite,
               "red_wall_grad_nonzero": red_grad > 0.0,
               "fd_within_10pct": expected > 0 and abs(fd - expected)
@@ -795,7 +828,8 @@ def phase_envlit_grad(envlit_xml, envlit):
     per_chunk = 1 + n_iters * (len(envlit.bitmap_slots) * len(envlit.bitmap_meta) + 2)
     n_passes = primal_chunks(stats) + stats["chunks"]
     want = {"closest": n_passes * (1 + n_iters), "anyhit": n_passes * n_iters,
-            "fetch": n_passes * per_chunk, "fetch_bwd": stats["chunks"] * per_chunk}
+            "fetch": n_passes * per_chunk, "fetch_bwd": stats["chunks"] * per_chunk,
+            "density": 0}
 
     def loss_at(values):
         out = render(replace_leaves(envlit, values), seed=0, depth_cap=BENCH_DEPTH,
@@ -814,7 +848,7 @@ def phase_envlit_grad(envlit_xml, envlit):
         fds[leaf] = {"fd": fd, "grad_dot_d": expected,
                      "ok": expected > 0 and abs(fd - expected) <= 0.05 * abs(expected)}
     # the same gradient on the CPU and on the card at phase 7's reduced size
-    small = load_and_compile(str(envlit_xml), spp=16, width=64, height=48, device="cpu")
+    small = load_and_compile(str(envlit_xml), spp=8, width=48, height=36, device="cpu")
     cpu = {}
     g_cpu, taps_cpu = captured_gradient(small, names, mean_loss, stats=cpu)
     g_cuda, taps_cuda = captured_gradient(small.to("cuda"), names, mean_loss)
@@ -828,7 +862,7 @@ def phase_envlit_grad(envlit_xml, envlit):
               **{f"cuda_vs_cpu_{k}": v < 1e-4 for k, v in l1.items()}}
     phase("15", f"envlit 256x256 64 spp gradient of the image mean over {names}: "
                 f"{gradient_timing(stats)}; launches {launches} expected {want}; "
-                f"directional FD {fds}; 64x48 16 spp CUDA vs CPU (depth cap {CPU_CHECK_DEPTH}) "
+                f"directional FD {fds}; 48x36 8 spp CUDA vs CPU (depth cap {CPU_CHECK_DEPTH}) "
                 f"relative L1 {l1} (the CPU "
                 f"gradient {cpu['primal_s'] + cpu['backward_s']:.1f} s); the gap's anatomy "
                 f"(relative L1 of the twin's sums from the CUDA taps or the CUDA grad_out, "
@@ -1024,7 +1058,7 @@ def media_gradient(scene, names, label, chunk_size, fd_leaves):
     n_lanes = scene.film_width * scene.film_height * scene.spp
     passes = stats["chunks"] + (0 if stats["chunks"] == 1 else -(-n_lanes // BENCH_CHUNK))
     per_pass = 1 + 5 * BENCH_DEPTH
-    want = {"closest": passes * per_pass, "anyhit": 0, "fetch": 0, "fetch_bwd": 0}
+    want = {"closest": passes * per_pass, "anyhit": 0, "fetch": 0, "fetch_bwd": 0, "density": 0}
     finite = all(bool(torch.isfinite(g).all()) for g in grads.values())
     fds = {k: transmittance_fd(scene, k) for k in fd_leaves}
     lead = names[0]
@@ -1175,7 +1209,7 @@ def phase_volpath():
     l1, anatomy = {}, {}
     for label, xml, names in (("teapot", TEAPOT_XML, media_names),
                               ("volume", vol_xml, ("volumes",))):
-        sc = load_and_compile(str(xml), spp=16, width=64, height=36, device="cpu")
+        sc = load_and_compile(str(xml), spp=8, width=48, height=27, device="cpu")
         t0 = time.perf_counter()
         (_, rgb_a, g_a), (_, rgb_b, g_b) = (
             image_grads(s, names, lambda r: r.mean(), seed=7, depth_cap=CPU_CHECK_DEPTH)
@@ -1191,7 +1225,7 @@ def phase_volpath():
                           "top10_share": float(diff.topk(min(10, diff.numel())).values.sum()
                                                / diff.sum().clamp(min=1e-30))}
     checks = {f"{label}_{k}": v < 1e-4 for label, r in l1.items() for k, v in r.items()}
-    phase("16", f"64x36 16 spp gradients (depth cap {CPU_CHECK_DEPTH}) CUDA vs CPU relative L1 "
+    phase("16", f"48x27 8 spp gradients (depth cap {CPU_CHECK_DEPTH}) CUDA vs CPU relative L1 "
                 f"{l1}; anatomy {anatomy}; "
                 f"checks {checks}")
     if not all(checks.values()):
@@ -1199,6 +1233,297 @@ def phase_volpath():
     out["gradient_cuda_vs_cpu_l1"] = l1
     out["gradient_cuda_vs_cpu_anatomy"] = anatomy
     return out
+
+
+def ppm_frames(scene, label, n_frames=N_FRAMES, warmup=None):
+    """A warm-up frame (of `warmup`, else of `scene`), then `n_frames` timed
+    frames of a photon-mapping `scene` through render() on cuda, seeds
+    varied, with every launch count set to 0 just before them and read just
+    after; fails unless they are n_frames x iterations x the structure's
+    `ppm.launches_per_iteration`. Returns (last output, seconds per frame,
+    launches)."""
+    import torch
+
+    from misaki_tpu_torch.render import ppm
+    from misaki_tpu_torch.render.driver import render
+    from misaki_tpu_torch.tools.bench import quiet
+
+    render(scene if warmup is None else warmup, seed=0, depth_cap=BENCH_DEPTH, progress=quiet)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    for i in range(n_frames):
+        out = render(scene, seed=i + 1, depth_cap=BENCH_DEPTH, progress=quiet)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / n_frames
+    launches = read_counts()
+    budget, iters = ppm.depth_budget(scene, BENCH_DEPTH), scene.ppm_iterations
+    want = {"fetch_bwd": 0, **{k: n_frames * iters * v for k, v in
+                               ppm.launches_per_iteration(scene, budget).items()}}
+    photons = ppm.photon_count(scene)
+    phase(label, f"{scene.film_width}x{scene.film_height}, {scene.integrator}, {photons} photons "
+                 f"x {iters} iterations, depth budget {budget}: {dt:.4f} s/frame, "
+                 f"{photons * iters / dt:.6e} photons/s, {iters / dt:.4f} iterations/s "
+                 f"({n_frames} frames); launches {launches} expected {want}")
+    if launches != want:
+        fail(f"phase {label}: kernel launch counts {launches} != expected {want}")
+    return out, dt, launches
+
+
+def luminance(rgb):
+    """CIE Y of linear sRGB (H, W, 3) numpy images."""
+    return 0.212671 * rgb[..., 0] + 0.715160 * rgb[..., 1] + 0.072169 * rgb[..., 2]
+
+
+def against_path(rgb, ref, block):
+    """A photon-mapping image against a path-traced one of the same scene,
+    as tests/test_ppm.py compares them, on the luminance Y: the relative
+    difference of the means and the correlation of `block` x `block`-pixel
+    means (each image's per-pixel noise, the path frame's fireflies and the
+    photons' per-pixel NEE, would otherwise decide it). Y, not the RGB: an
+    iteration draws one hero-wavelength set for every pixel
+    (misaki_tpu/render/ppm.py:498-501), so 8 iterations integrate the
+    colour-matching functions from 32 wavelengths and a frame's colour
+    balance varies with the seed (envlit's sky is bluer than red in some
+    seeds and not in others), while Y, whose matching function is the
+    broadest, varies little."""
+    import numpy as np
+
+    H, W = rgb.shape[0] // block, rgb.shape[1] // block
+
+    def lum(x):
+        return luminance(x)[:H * block, :W * block].reshape(H, block, W, block).mean(
+            axis=(1, 3)).ravel()
+
+    y, y_ref = luminance(rgb), luminance(ref)
+    return (float(abs(y.mean() - y_ref.mean()) / y_ref.mean()),
+            float(np.corrcoef(lum(rgb), lum(ref))[0, 1]))
+
+
+def density_check(args, calls=10):
+    """The density kernel against its twin on one photon depth's inputs
+    captured from a frame: counts equal and phi allclose (rtol 1e-5, atol
+    1e-6 of the twin's largest magnitude) in each of `calls` calls; the
+    kernel's and the twin's device times and the bound: FP32 operations of
+    the pairs this run's data needs (15 a pair of a live visible point and
+    a photon that may contribute, 5 more a pair that passes) against the
+    bytes of the inputs and outputs."""
+    import torch
+
+    from misaki_tpu_torch.render import ppm
+    from misaki_tpu_torch.tools.profile_cluster_frame import bound_ms, device_ms
+
+    vp, r2, ph_p, ph_wi, ph_n, flux, ok, sppm_mode = args
+    ph, vps = ppm.pack_inputs(vp, r2, ph_p, ph_wi, ph_n, flux, ok)
+    lib = ppm.build()
+    phi_t, count_t = ppm.density_plain(*args)
+    scale = float(phi_t.abs().max())
+    counts_equal, close, max_err, used = True, True, 0.0, 0.0
+    for _ in range(calls):
+        phi, count = ppm.density_launch(lib, ph, vps, sppm_mode)
+        torch.cuda.synchronize()
+        counts_equal &= bool(torch.equal(count, count_t))
+        close &= bool(torch.allclose(phi, phi_t, rtol=1e-5, atol=1e-6 * scale))
+        err = (phi - phi_t).abs()
+        max_err = max(max_err, float(err.max()))
+        used = max(used, float((err / (1e-6 * scale + 1e-5 * phi_t.abs())).max()))
+    ms = device_ms(lambda: ppm.density_launch(lib, ph, vps, sppm_mode), 10)
+    plain_ms = device_ms(lambda: ppm.density_plain(*args), 2)
+    wiz = ph_wi[0] * ph_n[0] + ph_wi[1] * ph_n[1] + ph_wi[2] * ph_n[2]
+    n_live = int((vp["valid"] & ~vp["glossy"]).sum())
+    n_ok = int((ok & (wiz > 0.0)).sum())
+    pairs_passed = int(count_t.sum())
+    n_ops = 15 * n_live * n_ok + 5 * pairs_passed
+    n_bytes = 4 * (ph.numel() + vps.numel() + 5 * vps.shape[1])
+    bound, bound_by = bound_ms(n_bytes, n_ops)
+    return {"photons": ph.shape[1], "visible_points": vps.shape[1], "live_visible_points": n_live,
+            "contributing_photons": n_ok, "pairs_passed": pairs_passed,
+            "counts_equal": counts_equal, "allclose_every_call": close, "max_abs_err": max_err,
+            "tolerance_used": used, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": bound_by, "ops": n_ops, "bytes": n_bytes}
+
+
+def phase_ppm(envlit):
+    """Phase 17: the sppm and photonmapper integrators (render/ppm.py) and
+    the density kernel. Returns the numbers for chip_smoke.json."""
+    import numpy as np
+    import torch
+
+    from misaki_tpu_torch.render import ppm
+    from misaki_tpu_torch.render.driver import render
+    from misaki_tpu_torch.scene.compiler import load_and_compile
+    from misaki_tpu_torch.scenes.materials import assets as materials_assets
+    from misaki_tpu_torch.tools.bench import quiet
+
+    res = {}
+    ref = render(load_and_compile(str(CBOX_XML), spp=BENCH_SPP, width=BENCH_W, height=BENCH_H)
+                 .replace(max_depth=BENCH_DEPTH + 1), seed=9, depth_cap=BENCH_DEPTH,
+                 progress=quiet)["rgb"].cpu().numpy()
+    # (a), (b): cbox under both integrators at the slice's size
+    captured = {}
+    for label, integrator, tol in (("17a", "sppm", (0.2, 0.9)),
+                                   ("17b", "photonmapper", (0.25, 0.85))):
+        xml = SCENES / "cbox" / f"{integrator}.xml"
+        scene = load_and_compile(str(xml), width=BENCH_W, height=BENCH_H)
+        warm = scene.replace(film_width=64, film_height=64, ppm_photons=1 << 14)
+        out, dt, launches = ppm_frames(scene, label, warmup=warm)
+        rgb, alpha = out["rgb"].cpu().numpy(), out["alpha"].cpu().numpy()
+        third = BENCH_W // 3
+        rel, corr = against_path(rgb, ref, 4)
+        checks = {"finite": bool(np.isfinite(rgb).all()),
+                  "red_left": bool(rgb[:, :third, 0].mean() > rgb[:, :third, 1].mean()),
+                  "green_right": bool(rgb[:, -third:, 1].mean() > rgb[:, -third:, 0].mean()),
+                  "alpha": bool(0.5 < alpha.mean() <= 1.0),
+                  "mean_vs_path": rel < tol[0], "luminance_corr_vs_path": corr > tol[1]}
+        phase(label, f"{xml.relative_to(ROOT)}: image mean {rgb.mean(axis=(0, 1)).tolist()}, "
+                     f"alpha {alpha.mean():.4f}; against a 256x256 64 spp path frame: mean "
+                     f"{rel:.4f} apart, luminance correlation of 4x4-pixel means {corr:.4f}; "
+                     f"checks {checks}")
+        if not all(checks.values()):
+            fail(f"phase {label}: image checks failed {checks}")
+        np.save(OUT_DIR / f"cbox_{integrator}_rgb.npy", rgb)
+        res[f"cbox_{integrator}"] = {"frame_s": dt, "launches": launches,
+                                     "photons_per_s": ppm.photon_count(scene)
+                                     * scene.ppm_iterations / dt,
+                                     "iterations_per_s": scene.ppm_iterations / dt,
+                                     "mean_vs_path": rel, "corr_vs_path": corr}
+        if integrator == "sppm":
+            # device busy share and top kernels of one iteration (profiling
+            # costs about 0.4 ms a launch: a frame is about 80k launches)
+            one = scene.replace(ppm_iterations=1)
+            render(one, seed=31, depth_cap=BENCH_DEPTH, progress=quiet)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            render(one, seed=32, depth_cap=BENCH_DEPTH, progress=quiet)
+            torch.cuda.synchronize()
+            one_s = time.perf_counter() - t0
+            res["cbox_sppm"]["iteration_s"] = one_s
+            res["cbox_sppm"]["profile"] = try_profile(
+                lambda: render(one, seed=33, depth_cap=BENCH_DEPTH, progress=quiet), one_s,
+                label, "profile_cbox_sppm.txt", what="iteration")
+            # one depth's inputs to the density kernel, for (e)
+            estimate = ppm.density_estimate
+
+            def capture(*args):
+                captured.setdefault("args", args)
+                return estimate(*args)
+
+            ppm.density_estimate = capture
+            try:
+                render(scene, seed=21, depth_cap=BENCH_DEPTH, progress=quiet)
+            finally:
+                ppm.density_estimate = estimate
+
+    # (c) envlit under sppm: envmap photon emission, bitmap visible points
+    env = envlit.replace(integrator="sppm", ppm_photons=PPM_PHOTONS, ppm_iterations=PPM_ITERS,
+                         max_depth=BENCH_DEPTH + 1)
+    out, dt, launches = ppm_frames(env, "17c", warmup=env.replace(
+        film_width=64, film_height=64, ppm_photons=1 << 14))
+    rgb = out["rgb"].cpu().numpy()
+    top = rgb[: rgb.shape[0] // 8]
+    env_ref = render(envlit.replace(spp=16, max_depth=BENCH_DEPTH + 1), seed=9,
+                     depth_cap=BENCH_DEPTH, progress=quiet)["rgb"].cpu().numpy()
+    rel, corr = against_path(rgb, env_ref, 8)
+    top_rel = float(abs(luminance(top).mean() / luminance(env_ref[: rgb.shape[0] // 8]).mean()
+                        - 1.0))
+    checks = {"finite": bool(np.isfinite(rgb).all()), "sky_luminance_vs_path": top_rel < 0.1,
+              "mean_vs_path": rel < 0.2, "luminance_corr_vs_path": corr > 0.9}
+    phase("17c", f"envlit image mean {rgb.mean(axis=(0, 1)).tolist()}, top rows "
+                 f"{top.mean(axis=(0, 1)).tolist()} (luminance {top_rel:.4f} from the path "
+                 f"frame's); against a 256x256 16 "
+                 f"spp path frame: mean {rel:.4f} apart, luminance correlation of 8x8-pixel "
+                 f"means {corr:.4f}; "
+                 f"checks {checks}")
+    if not all(checks.values()):
+        fail(f"phase 17c: image checks failed {checks}")
+    np.save(OUT_DIR / "envlit_sppm_rgb.npy", rgb)
+    res["envlit_sppm"] = {"frame_s": dt, "launches": launches,
+                          "photons_per_s": PPM_PHOTONS * PPM_ITERS / dt,
+                          "iterations_per_s": PPM_ITERS / dt, "mean_vs_path": rel,
+                          "corr_vs_path": corr}
+
+    # (d) the gallery under sppm, reduced: glossy visible points (the
+    # plain pair path), point-light and constant-environment photons
+    gallery = load_and_compile(str(materials_assets.prepared(GALLERY_BUILD)), width=128,
+                               height=128).replace(integrator="sppm", ppm_photons=1 << 14,
+                                                   ppm_iterations=2)
+    glossy_vps = []
+    glossy = ppm._density_glossy
+
+    def count_glossy(vp, *args):
+        glossy_vps.append(int((vp["valid"] & vp["glossy"]).sum()))
+        return glossy(vp, *args)
+
+    ppm._density_glossy = count_glossy
+    try:
+        out, dt, launches = ppm_frames(gallery, "17d", n_frames=1, warmup=gallery.replace(
+            film_width=32, film_height=32, ppm_photons=2048, ppm_iterations=1))
+    finally:
+        ppm._density_glossy = glossy
+    rgb = out["rgb"].cpu().numpy()
+    checks = {"finite": bool(np.isfinite(rgb).all()), "non_negative": bool(rgb.min() >= 0.0),
+              "lit": bool(rgb.mean() > 0.05), "glossy_visible_points": max(glossy_vps) > 0}
+    phase("17d", f"gallery 128x128, {gallery.ppm_photons} photons x {gallery.ppm_iterations} "
+                 f"iterations: glossy visible points per photon depth {glossy_vps}, emitter "
+                 f"kinds {gallery.emitter_kinds}; image mean {rgb.mean(axis=(0, 1)).tolist()}; "
+                 f"checks {checks}")
+    if not all(checks.values()):
+        fail(f"phase 17d: image checks failed {checks}")
+    res["gallery_sppm"] = {"frame_s": dt, "launches": launches, "glossy_vps": glossy_vps}
+
+    # (e) the density kernel against its twin on frame (a)'s inputs
+    dens = density_check(captured["args"])
+    phase("17e", f"density kernel on cbox sppm photon depth 1: {dens['photons']} photons x "
+                 f"{dens['visible_points']} visible points ({dens['live_visible_points']} live, "
+                 f"{dens['contributing_photons']} photons that may contribute, "
+                 f"{dens['pairs_passed']} pairs passed): counts equal {dens['counts_equal']}, "
+                 f"phi allclose in every one of 10 calls {dens['allclose_every_call']} (max abs "
+                 f"err {dens['max_abs_err']:.3e}, {dens['tolerance_used']:.3f} of the tolerance "
+                 f"used); kernel_ms={dens['ms']:.4f} plain_ms={dens['plain_ms']:.4f} "
+                 f"bound_ms={dens['bound_ms']:.4f} ({dens['bound_by']}, {dens['ops']:.4e} ops)")
+    if not (dens["counts_equal"] and dens["allclose_every_call"]):
+        fail("phase 17e: the density kernel disagrees with its plain twin")
+    res["density_kernel"] = dens
+
+    # (f) CUDA against the CPU on a small cbox sppm render
+    small = load_and_compile(str(SCENES / "cbox" / "sppm.xml"), width=64, height=48,
+                             device="cpu").replace(ppm_photons=8192, ppm_iterations=2)
+    res["cuda_vs_cpu"] = cuda_vs_cpu(small, "17f")
+
+    # (g) checkpoint and resume per iteration on the card
+    scene = load_and_compile(str(SCENES / "cbox" / "sppm.xml"), width=128, height=128).replace(
+        ppm_photons=1 << 16, ppm_iterations=4)
+    ck = OUT_DIR / "ppm_checkpoint.npz"
+    ck.unlink(missing_ok=True)
+    ref_out = render(scene, seed=5, depth_cap=BENCH_DEPTH, progress=quiet)
+
+    class Stop(RuntimeError):
+        pass
+
+    def stop_after_3(done, total):
+        if done == 3:
+            raise Stop()
+
+    try:
+        render(scene, seed=5, depth_cap=BENCH_DEPTH, checkpoint_path=str(ck), checkpoint_every=1,
+               progress=stop_after_3)
+        fail("phase 17g: the progress callback did not stop the render")
+    except Stop:
+        pass
+    snapshot_it = int(np.load(ck)["next_it"]) if ck.exists() else None
+    seen = []
+    out = render(scene, seed=5, depth_cap=BENCH_DEPTH, checkpoint_path=str(ck),
+                 checkpoint_every=1, progress=lambda done, total: seen.append(done))
+    checks = {"snapshot_at_2": snapshot_it == 2, "resumed_3_to_4": seen == [3, 4],
+              "rgb_bit_equal": bool(torch.equal(out["rgb"], ref_out["rgb"])),
+              "alpha_bit_equal": bool(torch.equal(out["alpha"], ref_out["alpha"])),
+              "snapshot_cleared": not ck.exists()}
+    phase("17g", f"cbox sppm 128x128, 65536 photons x 4 iterations: stopped after iteration 3, "
+                 f"snapshot at iteration {snapshot_it}, resumed {seen}; checks {checks}")
+    if not all(checks.values()):
+        fail(f"phase 17g: checkpoint/resume checks failed {checks}")
+    res["checkpoint"] = checks
+    return res
 
 
 def run_bench():
@@ -1327,7 +1652,7 @@ def main():
     import numpy as np
 
     from misaki_tpu_torch.accel import cluster as cl
-    from misaki_tpu_torch.render import driver
+    from misaki_tpu_torch.render import driver, ppm
     from misaki_tpu_torch.render import texel_fetch as tf
     from misaki_tpu_torch.render.integrator import n_bounce_iters
     from misaki_tpu_torch.scene import procedural
@@ -1341,11 +1666,13 @@ def main():
 
     # ---- phase 2: build, one nvcc per source, all started together
     t0 = time.perf_counter()
-    libs = cuda_build.compile_sources([cl.SRC, tf.SRC])
+    srcs = [cl.SRC, tf.SRC, ppm.SRC]
+    libs = cuda_build.compile_sources(srcs)
     cl.build()
     tf.build()
+    ppm.build()
     phase("2", f"built {', '.join(p.name for p in libs)} from "
-               f"{cl.SRC.relative_to(ROOT)}, {tf.SRC.relative_to(ROOT)} in "
+               f"{', '.join(str(src.relative_to(ROOT)) for src in srcs)} in "
                f"{time.perf_counter() - t0:.2f} s")
 
     # ---- phase 3: cluster kernels vs plain twins
@@ -1452,7 +1779,7 @@ def main():
         fail(f"phase 7: image checks failed {checks}")
     np.save(OUT_DIR / "envlit_bench_rgb.npy", rgb)
     profile_env = try_profile(frame(envlit), dt_env, "7", "profile_envlit.txt")
-    small = load_and_compile(str(envlit_xml), spp=16, width=64, height=48, device="cpu")
+    small = load_and_compile(str(envlit_xml), spp=8, width=48, height=36, device="cpu")
     env_mean_rel, env_l1_rel = cuda_vs_cpu(small, "7")
 
     # ---- phase 8: the closest-hit stage profile (kernel #4's counterpart)
@@ -1547,6 +1874,9 @@ def main():
 
     # ---- phase 16: volpath — the teapot stand-in, the grid volume, media gradients
     volpath = phase_volpath()
+
+    # ---- phase 17: sppm and photonmapper, the density kernel
+    photon = phase_ppm(envlit)
     bench = run_bench()
 
     main_case = report["cbox_camera"]
@@ -1558,7 +1888,10 @@ def main():
                  "cbox_train_step": (train["launches"], train["frames"]),
                  "envlit_gradient": (grad["launches"], grad["frames"]),
                  **{run: (volpath[run]["launches"], 1) for run in
-                    ("teapot", "volume", "teapot_gradient", "volume_gradient")}}
+                    ("teapot", "volume", "teapot_gradient", "volume_gradient")},
+                 **{run: (photon[run]["launches"], 1 if run == "gallery_sppm" else N_FRAMES)
+                    for run in ("cbox_sppm", "cbox_photonmapper", "envlit_sppm",
+                                "gallery_sppm")}}
 
     def launches(key):
         return sum(counts.get(key, 0) for counts, _ in main_runs.values())
@@ -1567,6 +1900,7 @@ def main():
         return {run: counts.get(key, 0) / frames for run, (counts, frames) in main_runs.items()}
 
     bwd, bp = grad["backward_kernel"], grad["backward_on_path"]
+    dens = photon["density_kernel"]
     n_bp = len(bp["launches"])
 
     kernels = {"kernels": [
@@ -1632,6 +1966,16 @@ def main():
          "checks_per_launch": bp["launches"][0]["checks"],
          **{f"{cell}_{k}": bwd[cell][k] for cell in bwd
             for k in ("ms", "finalize_ms", "plain_ms", "bound_ms", "index_add_ms")}},
+        {"name": "density_kernel", "route": "cuda",
+         "source": "misaki_tpu_torch/csrc/ppm_density.cu",
+         "replaces": "misaki_tpu/render/ppm.py:282",
+         "replaces_note": "no Pallas kernel: _density_blocks is an XLA matmul per 2048-photon "
+                          "block",
+         "launches": launches("density"),
+         "launches_per_frame": per_frame("density"),
+         "max_abs_err": dens["max_abs_err"], "ms": dens["ms"], "plain_ms": dens["plain_ms"],
+         "bound_ms": dens["bound_ms"], "bound_by": dens["bound_by"], "library_ms": None,
+         "tolerance_used": dens["tolerance_used"], "pairs_passed": dens["pairs_passed"]},
     ]}
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
         {"device": device_name, "nvidia_smi": smi_line, "cluster_kernels": report,
@@ -1646,7 +1990,7 @@ def main():
          "testballs": balls,
          **{path: {**r, "profile": new_profiles[path]} for path, r in new_paths.items()},
          "checkpoint": checkpoint, "cbox_train": train, "envlit_gradient": grad,
-         "volpath": volpath, "bench": bench}, indent=1))
+         "volpath": volpath, "photon_mapping": photon, "bench": bench}, indent=1))
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name,
                                              "count": torch.cuda.device_count()}}), flush=True)
@@ -1700,6 +2044,7 @@ def try_profile(run, run_s, label, table_name, what="frame", closest_per_chunk=N
     (closest_t, n_closest), (any_t, n_any) = named("closest_hit"), named("any_hit")
     cluster_t = closest_t + any_t
     fetch_t, n_fetch = named("fetch4")
+    density_t, n_density = named("density_kernel")
     kernels.sort(key=lambda e: -self_time(e))
     top = "; ".join(f"{e.key[:60]} {self_time(e) / 1e3:.3f} ms x{e.count}" for e in kernels[:6])
     cast_ms = {"closest": 1e3 * closest_t / max(n_closest, 1), "anyhit": 1e3 * any_t / max(n_any, 1)}
@@ -1710,10 +2055,14 @@ def try_profile(run, run_s, label, table_name, what="frame", closest_per_chunk=N
                  f"hit {closest_t:.4f} s over {n_closest} launches, {cast_ms['closest']:.4f} ms "
                  f"each; any hit {any_t:.4f} s over {n_any}, {cast_ms['anyhit']:.4f} ms each), "
                  f"texel fetch {fetch_t:.4f} s = {fetch_t / busy:.3f} over {n_fetch} launches, "
-                 f"{fetch_ms:.4f} ms each; top: {top}")
+                 f"{fetch_ms:.4f} ms each"
+                 + (f", density kernel {density_t:.4f} s = {density_t / busy:.3f} over "
+                    f"{n_density} launches" if n_density else "")
+                 + f"; top: {top}")
     out = {"launches": launches, "busy_s": busy, "busy_share": busy / run_s,
            "cluster_s": cluster_t, "cluster_share": cluster_t / busy, "fetch_s": fetch_t,
-           "fetch_launches": n_fetch, "fetch_ms_per_launch": fetch_ms, "cast_ms": cast_ms}
+           "fetch_launches": n_fetch, "fetch_ms_per_launch": fetch_ms, "cast_ms": cast_ms,
+           "density_s": density_t, "density_launches": n_density}
     if closest_per_chunk is not None:
         out["closest_ms_by_segment"] = closest_by_segment(prof.events(), closest_per_chunk)
     return out

@@ -18,7 +18,9 @@ def main(argv=None):
     p = argparse.ArgumentParser(description="misaki_tpu_torch renderer")
     p.add_argument("scene", help="Mitsuba-style scene XML")
     p.add_argument("-o", "--output", default=None, help="output image path (.exr or .png)")
-    p.add_argument("--spp", type=int, default=None, help="override samples/pixel")
+    p.add_argument("--spp", type=int, default=None,
+                   help="override samples/pixel (sppm and photonmapper take one a pixel "
+                        "per iteration)")
     p.add_argument("--width", type=int, default=None)
     p.add_argument("--height", type=int, default=None)
     p.add_argument("--depth", type=int, default=16, help="bounce cap for max_depth=-1")
@@ -32,7 +34,8 @@ def main(argv=None):
                    help="film snapshot, written during the render and resumed from "
                         "when present; the finished image is the same to the bit")
     p.add_argument("--checkpoint-every", type=int, default=8, metavar="N",
-                   help="snapshot every N lane chunks (default 8)")
+                   help="snapshot every N lane chunks, or N iterations of sppm and "
+                        "photonmapper (default 8)")
     p.add_argument("--device", default="cuda", help="torch device (cuda or cpu)")
     args = p.parse_args(argv)
 
@@ -61,8 +64,13 @@ def main(argv=None):
              scene.n_faces, scene.n_shapes, scene.n_emitters, scene.integrator, t)
 
     t.reset()
-    log.info("Starting render job (%dx%d, %d samples) on %s", scene.film_width,
-             scene.film_height, scene.spp, device)
+    if scene.integrator in ("sppm", "photonmapper"):
+        log.info("Starting render job (%dx%d, %d photons x %d iterations) on %s",
+                 scene.film_width, scene.film_height, scene.ppm_photons, scene.ppm_iterations,
+                 device)
+    else:
+        log.info("Starting render job (%dx%d, %d samples) on %s", scene.film_width,
+                 scene.film_height, scene.spp, device)
     out = render(scene, seed=args.seed, chunk_size=1 << args.chunk_log2, depth_cap=args.depth,
                  checkpoint_path=args.checkpoint, checkpoint_every=args.checkpoint_every)
     rgb, alpha = out["rgb"].cpu(), out["alpha"].cpu()

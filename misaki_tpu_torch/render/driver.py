@@ -1,7 +1,7 @@
 """Render driver: wavefront orchestration + film assembly
 (reference: SamplingIntegrator::render, integrator.cpp:31-126), with the
-`path`, `direct`, `debug` and `aov` integrators, checkpoint/resume and
-progress reports.
+`path`, `direct`, `debug`, `aov` and `volpath` integrators, checkpoint/resume
+and progress reports; `sppm` and `photonmapper` go to `render/ppm.py`.
 
 The full (pixels x spp) sample set is split into fixed-size lane chunks; each
 chunk is rendered and splatted into the film, which stays on the device.
@@ -143,7 +143,10 @@ def render(scene, seed=0, chunk_size=DEFAULT_CHUNK,
     """Render the scene on the scene's device. Returns {"film" (H, W, 5),
     "rgb" (H, W, 3), "alpha" (H, W)} tensors on that device; the `aov`
     integrator returns {"film": None, "rgb", "alpha", "aovs": {name:
-    (H, W, C)}} (render/aov.py).
+    (H, W, C)}} (render/aov.py). `sppm` and `photonmapper` go to
+    `render_ppm` (render/ppm.py), which returns {"film": None, "rgb",
+    "alpha"}, takes checkpoints and reports progress per iteration and has
+    no use for `chunk_size` (its wavefront is one camera sample a pixel).
 
     checkpoint_path: where set, the film is saved every `checkpoint_every`
     chunks and a compatible snapshot is resumed from; the finished image is
@@ -151,6 +154,12 @@ def render(scene, seed=0, chunk_size=DEFAULT_CHUNK,
     streams are fixed. The snapshot is deleted when the render completes.
     progress: callable(done_chunks, total_chunks) after each chunk; by
     default `log_progress` on a render of several chunks."""
+    if scene.integrator in ("sppm", "photonmapper"):
+        from misaki_tpu_torch.render.ppm import render_ppm
+
+        return render_ppm(scene, seed=seed, depth_cap=depth_cap,
+                          checkpoint_path=checkpoint_path,
+                          checkpoint_every=checkpoint_every, progress=progress)
     W, H, spp = scene.film_width, scene.film_height, scene.spp
     n_total = W * H * spp
     chunk = pick_chunk(chunk_size, spp, n_total)

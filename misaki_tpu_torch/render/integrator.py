@@ -524,12 +524,17 @@ def sample_volpath(scene, ray, rng_state, depth_cap=DEFAULT_MAX_DEPTH_CAP):
 
 def radiance(scene, ray, rng_state, integrator, depth_cap=DEFAULT_MAX_DEPTH_CAP):
     """The spectral radiance estimate of a radiance integrator, `path`,
-    `direct` or `volpath`; the others (`sppm`, `photonmapper`) raise
-    NotImplementedError with their name."""
+    `direct` or `volpath`. `sppm` and `photonmapper` have no per-lane
+    estimate (a visible point gathers a whole photon pass): they render
+    through `render/ppm.py` `render_ppm`, which `driver.render` calls, and
+    raise NotImplementedError here."""
     if integrator == "path":
         return sample_path(scene, ray, rng_state, depth_cap)
     if integrator == "direct":
         return sample_direct(scene, ray, rng_state)
     if integrator == "volpath":
         return sample_volpath(scene, ray, rng_state, depth_cap)
+    if integrator in ("sppm", "photonmapper"):
+        raise NotImplementedError(f"integrator '{integrator}' has no per-lane estimate: "
+                                  "it renders through render.ppm.render_ppm")
     raise NotImplementedError(f"integrator '{integrator}'")

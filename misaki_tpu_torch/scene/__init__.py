@@ -79,6 +79,8 @@ def from_compiled(arrays, device="cuda"):
         aovs=tuple(arrays.aovs), aov_nested=arrays.aov_nested,
         direct_light_samples=arrays.direct_light_samples,
         direct_bsdf_samples=arrays.direct_bsdf_samples,
+        ppm_photons=arrays.ppm_photons, ppm_iterations=arrays.ppm_iterations,
+        ppm_radius=arrays.ppm_radius,
         diff_mode=bool(getattr(arrays, "diff_mode", False)),
         media=media, volumes=a(arrays.volumes, np.float32).reshape(-1),
         volume_meta=tuple(arrays.volume_meta),

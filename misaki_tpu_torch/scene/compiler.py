@@ -7,11 +7,10 @@ roughplastic, disney / principled, null, and the twosided and mask
 adapters) with plain, checkerboard or `bitmap` textures; `area`, `constant`,
 `envmap` and `point` emitters; the perspective sensor with an `hdrfilm` or
 `rgbfilm` and a box or gaussian filter; and the settings of the `path`,
-`direct`, `debug`, `aov` and `volpath` integrators; `homogeneous` media on a
-shape's interior or exterior, with a `constvolume` or `gridvolume` density
-(`.vol` version 3 float32 or `.npy` grids). On those scenes it produces the
-same arrays as the JAX compiler. `sppm` and `photonmapper` compile and raise
-when rendered.
+`direct`, `debug`, `aov`, `volpath`, `sppm` and `photonmapper` integrators;
+`homogeneous` media on a shape's interior or exterior, with a `constvolume`
+or `gridvolume` density (`.vol` version 3 float32 or `.npy` grids). On those
+scenes it produces the same arrays as the JAX compiler.
 
 Two differences from the JAX compiler:
   * every scene gets the cluster accel (`accel/cluster.py`), built from the
@@ -1144,6 +1143,11 @@ def compile_scene(desc, spp=None, width=None, height=None, max_depth=None, devic
         aov_nested=aov_nested,
         direct_light_samples=int(ip.get("light_samples", 1)),
         direct_bsdf_samples=int(ip.get("bsdf_samples", 1)),
+        # photon mapping (sppm.cpp:349-353, photonmapper.cpp:67-69):
+        # `photon_count` is the photonmapper's name, `photons` the sppm one
+        ppm_photons=int(ip.get("photon_count", ip.get("photons", 16384))),
+        ppm_iterations=int(ip.get("iterations", 8)),
+        ppm_radius=float(ip.get("initial_radius", ip.get("photon_radius", 0.0))),
         media=media_table,
         volumes=volumes,
         volume_meta=volume_meta,

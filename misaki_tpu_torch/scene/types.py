@@ -267,6 +267,12 @@ class CompiledScene(_Tables):
     aov_nested: str = "path"
     direct_light_samples: int = 1
     direct_bsdf_samples: int = 1
+    # the photon-mapping integrators (misaki_tpu/scene/types.py:324-327):
+    # photons a pass, iterations, and the initial gather radius (0 = auto, a
+    # fraction of the scene's bounding-sphere radius)
+    ppm_photons: int = 16384
+    ppm_iterations: int = 8
+    ppm_radius: float = 0.0
     # differentiable rendering (misaki_tpu_torch.diff): microfacet alpha and
     # the Disney slots carry gradients only when set; training flips it with
     # scene.replace(diff_mode=True)

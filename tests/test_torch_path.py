@@ -250,10 +250,16 @@ def test_seed_changes_noise(cbox_small):
 
 
 def test_unported_integrator_raises(cbox_small):
-    """sppm and photonmapper raise with their name; volpath, which raised
-    before the port carried media, renders cbox (no media) finite and lit."""
+    """sppm and photonmapper, which raised before the port carried them,
+    render cbox (2048 photons, one iteration) finite and lit with the box's
+    pixels covered; volpath, which raised before the port carried media,
+    renders cbox (no media) finite and lit. The name dates from when they
+    raised."""
     for integrator in ("sppm", "photonmapper"):
-        with pytest.raises(NotImplementedError, match=integrator):
-            pdriver.render(cbox_small.replace(integrator=integrator), depth_cap=1)
+        out = pdriver.render(cbox_small.replace(integrator=integrator, ppm_photons=2048,
+                                                ppm_iterations=1), depth_cap=1)
+        assert out["film"] is None and out["rgb"].shape == (48, 64, 3)
+        assert torch.isfinite(out["rgb"]).all() and float(out["rgb"].mean()) > 0.01
+        assert float(out["alpha"].mean()) > 0.7
     out = pdriver.render(cbox_small.replace(integrator="volpath"), depth_cap=1)
     assert torch.isfinite(out["rgb"]).all() and float(out["rgb"].mean()) > 0.01

@@ -30,8 +30,10 @@ def test_library_named_by_source_hash(tmp_path):
     assert cuda_build.library_path(src) == first
     src.write_text("extern \"C\" int f() { return 1; }\n")
     assert cuda_build.library_path(src) != first
-    # both libraries of the port are distinct
-    assert len({cuda_build.library_path(s).name for s in cuda_build.CSRC.glob("*.cu")}) == 2
+    # the port's three libraries are distinct
+    srcs = sorted(cuda_build.CSRC.glob("*.cu"))
+    assert [s.stem for s in srcs] == ["cluster", "ppm_density", "texel_fetch"]
+    assert len({cuda_build.library_path(s).name for s in srcs}) == 3
 
 
 def test_build_failure_names_the_source(tmp_path, monkeypatch):
