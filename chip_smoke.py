@@ -137,6 +137,18 @@ Phases, one line each; any failure exits non-zero:
      (g) a cbox sppm render (128x128, 2^16 photons, 4 iterations) stopped
      after iteration 3 and resumed from the per-iteration snapshot: equal
      to the bit;
+ 18. sharding (parallel/sharding.py) on the one card: (a) world size 1 over
+     NCCL, a render_sharded frame of cbox at the benchmark spec beside a
+     render() frame of the same seed (the films equal to the bit), its
+     launches as phase 4's, the film's all-reduce time (CUDA events) and
+     bytes; (b) train_step_sharded at world size 1 beside train_step on
+     phase 15 (a)'s step (loss rtol 1e-6, gradients within 1e-5 relative
+     L1); (c) FUNCTIONAL ONLY, not a scaling result: two processes that
+     share the card over gloo, render_sharded on a (2,) mesh and
+     render_sharded_2d on (1, 2) and (2, 1) against (a)'s film,
+     train_step_sharded on (2,) against (b)'s gradients, and
+     dryrun_multichip(2); seconds per frame and step and the processes'
+     start apart;
 then the port's bench (python -m misaki_tpu_torch.tools.bench), its lines
 printed with a "[bench]" prefix. Timed and profiled frames pass the bench's
 `quiet` progress callback, so the driver's progress log stays out of them.
@@ -639,6 +651,27 @@ def primal_chunks(stats):
     return 0 if stats["chunks"] == 1 else -(-BENCH_W * BENCH_H * BENCH_SPP // BENCH_CHUNK)
 
 
+def train_cbox(**kw):
+    """Phase 15 (a)'s training case: cbox (load_and_compile's `kw`) at
+    max_depth BENCH_DEPTH + 1 and its target, rendered with the red wall's
+    reflectance slot taken from the green wall's column -> (scene, target
+    rgb, the red wall's material column)."""
+    from misaki_tpu_torch.diff import replace_leaves
+    from misaki_tpu_torch.render.driver import render
+    from misaki_tpu_torch.scene.compiler import load_and_compile
+    from misaki_tpu_torch.scene.types import MC_REFL, SPEC_SLOT_COLS
+    from misaki_tpu_torch.tools.bench import quiet
+
+    slot = slice(MC_REFL, MC_REFL + SPEC_SLOT_COLS)
+    scene = load_and_compile(str(CBOX_XML), **kw).replace(max_depth=BENCH_DEPTH + 1)
+    red, green = (int(scene.shape_bsdf[i]) for i in (5, 4))   # scene.xml's shape order
+    mats = scene.materials.params.clone()
+    mats[slot, red] = mats[slot, green]
+    target = render(replace_leaves(scene, {"materials": mats}), seed=0,
+                    depth_cap=BENCH_DEPTH, progress=quiet)["rgb"]
+    return scene, target, red
+
+
 def phase_train():
     """Phase 15 (a): five Adam steps of train_step on cbox at the benchmark
     spec from the original materials toward a target rendered with the red
@@ -651,22 +684,11 @@ def phase_train():
     from misaki_tpu_torch.diff import get_leaves, replace_leaves
     from misaki_tpu_torch.diff.train import DEFAULT_TRAIN_LEAVES, lever_direction, train_step
     from misaki_tpu_torch.render.driver import render
-    from misaki_tpu_torch.scene.compiler import load_and_compile
     from misaki_tpu_torch.scene.types import MC_REFL, SPEC_SLOT_COLS
     from misaki_tpu_torch.tools.bench import quiet
 
     slot = slice(MC_REFL, MC_REFL + SPEC_SLOT_COLS)
-
-    def cbox(**kw):
-        scene = load_and_compile(str(CBOX_XML), **kw).replace(max_depth=BENCH_DEPTH + 1)
-        red, green = (int(scene.shape_bsdf[i]) for i in (5, 4))   # scene.xml's shape order
-        mats = scene.materials.params.clone()
-        mats[slot, red] = mats[slot, green]
-        target = render(replace_leaves(scene, {"materials": mats}), seed=0,
-                        depth_cap=BENCH_DEPTH, progress=quiet)["rgb"]
-        return scene, target, red
-
-    scene, target, red = cbox(spp=BENCH_SPP, width=BENCH_W, height=BENCH_H)
+    scene, target, red = train_cbox(spp=BENCH_SPP, width=BENCH_W, height=BENCH_H)
 
     def loss_of(values):
         out = render(replace_leaves(scene, values), seed=0, depth_cap=BENCH_DEPTH,
@@ -720,7 +742,7 @@ def phase_train():
     expected = float(np.sum(g_mats.astype(np.float64) * dc))
     # the same step's gradients on the CPU and on the card at phase 5's size:
     # the materials' one-hot matmul backward, the emitter leaves
-    small, small_target, _ = cbox(spp=16, width=64, height=48, device="cpu")
+    small, small_target, _ = train_cbox(spp=16, width=64, height=48, device="cpu")
     _, g_cpu = train_step(small, small_target, seed=7, depth_cap=BENCH_DEPTH)
     _, g_cuda = train_step(small.to("cuda"), small_target.cuda(), seed=7, depth_cap=BENCH_DEPTH)
     l1 = {k: rel_l1(g_cuda[k], g_cpu[k]) for k in DEFAULT_TRAIN_LEAVES}
@@ -1526,6 +1548,199 @@ def phase_ppm(envlit):
     return res
 
 
+SHARD_REPS = 10   # the film's all-reduce calls timed in phase 18 (a)
+
+
+def timed(fn):
+    """-> (fn(), seconds), the card synchronised at both ends."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_sharding(smi_line):
+    """Phase 18: parallel/sharding.py on the one card. (a) world size 1 over
+    NCCL on cuda:0: a render_sharded frame of cbox at the benchmark spec
+    beside a render() frame of the same seed (the same chunks, so the films
+    equal to the bit; else the largest difference, failing above rtol
+    1e-6), the sharded frame's launches as phase 4's, the film's all-reduce
+    timed by CUDA events; (b) train_step_sharded at world size 1 beside
+    train_step on phase 15 (a)'s step: the loss to rtol 1e-6, every leaf's
+    gradient within 1e-5 relative L1, the launches of one pass; (c)
+    functional only, two processes that share the card over gloo with CUDA
+    tensors: render_sharded on a (2,) mesh and render_sharded_2d on (1, 2)
+    and (2, 1) against (a)'s film (rtol 1e-5, atol 1e-6 of its largest
+    value), train_step_sharded on (2,) against (b)'s gradients (1e-4
+    relative L1), in one autograd chunk a rank and in 2^20-lane chunks
+    (image_grads' primal, the film's sum, the chunked re-render), every
+    rank's results the same, then dryrun_multichip(2). Returns its
+    numbers."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from misaki_tpu_torch import graft_entry
+    from misaki_tpu_torch.diff.train import DEFAULT_TRAIN_LEAVES, train_step
+    from misaki_tpu_torch.parallel import sharding as sh
+    from misaki_tpu_torch.render import film as film_mod
+    from misaki_tpu_torch.render.driver import render
+    from misaki_tpu_torch.render.integrator import n_bounce_iters
+    from misaki_tpu_torch.tools.bench import quiet
+
+    scene, target, _ = train_cbox(spp=BENCH_SPP, width=BENCH_W, height=BENCH_H)
+    kw = dict(seed=1, depth_cap=BENCH_DEPTH)
+    n_iters = n_bounce_iters(scene, BENCH_DEPTH)
+    n_chunks = -(-BENCH_W * BENCH_H * BENCH_SPP // BENCH_CHUNK)
+    none = {"fetch": 0, "fetch_bwd": 0, "density": 0}
+    want = {"closest": n_chunks * (1 + n_iters), "anyhit": n_chunks * n_iters, **none}
+    want_step = {"closest": 1 + n_iters, "anyhit": n_iters, **none}   # one autograd pass
+
+    def train(name):
+        if name == "sharded":
+            return sh.train_step_sharded(mesh, scene, target, seed=0, depth_cap=BENCH_DEPTH)
+        return train_step(scene, target, seed=0, depth_cap=BENCH_DEPTH)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        dev = sh.init_distributed(f"file://{tmp}/store", 1, 0, "nccl", device="cuda")
+        try:
+            mesh = sh.make_mesh(1, dev)
+            # (a); the warm-up frame makes NCCL's communicator (first all-reduce)
+            sh.render_sharded(mesh, scene, seed=0, depth_cap=BENCH_DEPTH, chunk_size=BENCH_CHUNK)
+            # in turns, sharded, render(), render(), sharded (one frame of
+            # each is host noise: on an H100 80GB HBM3 0.345 against 0.239 s
+            # in one run, 0.337 against 0.365 s in another); the launches of
+            # the first
+            frames, films = {"sharded": [], "render": []}, {}
+            for i, name in enumerate(("sharded", "render", "render", "sharded")):
+                if i == 0:
+                    reset_counts()
+                films[name], t = timed(
+                    lambda: sh.render_sharded(mesh, scene, chunk_size=BENCH_CHUNK, **kw)
+                    if name == "sharded" else
+                    render(scene, chunk_size=BENCH_CHUNK, progress=quiet, **kw)["film"])
+                if i == 0:
+                    launches = read_counts()
+                frames[name].append(t)
+            film, ref = films["sharded"], films["render"]
+            shard_s, one_s = (sum(frames[k]) / 2 for k in ("sharded", "render"))
+            equal = bool(torch.equal(film, ref))
+            film_diff = float((film - ref).abs().max())
+            flat = film_mod.new_film_flat(BENCH_H, BENCH_W, 5, scene.filter_type,
+                                          scene.filter_stddev, device=dev)
+            sh.mesh_sum(flat, mesh)
+            ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            torch.cuda.synchronize()
+            ev0.record()
+            for _ in range(SHARD_REPS):
+                sh.mesh_sum(flat, mesh)
+            ev1.record()
+            torch.cuda.synchronize()
+            reduce_ms = ev0.elapsed_time(ev1) / SHARD_REPS
+            reduce_bytes = flat.numel() * flat.element_size()
+            checks = {"film_equal_or_rtol_1e-6": equal or bool(
+                          torch.allclose(film, ref, rtol=1e-6, atol=0.0)),
+                      "launches": launches == want}
+            phase("18a", f"world size 1 over nccl on {dev}: cbox {BENCH_W}x{BENCH_H} "
+                         f"{BENCH_SPP} spp, depth cap {BENCH_DEPTH}, {n_chunks} chunks of "
+                         f"{BENCH_CHUNK}: render_sharded {shard_s:.4f} s/frame, render() "
+                         f"{one_s:.4f} s/frame (2 each, in turns); films equal to the bit "
+                         f"{equal} (largest "
+                         f"difference {film_diff:.3e}); launches {launches} expected {want}; "
+                         f"the film's all-reduce {reduce_bytes} bytes, {reduce_ms:.4f} ms "
+                         f"(CUDA events, mean of {SHARD_REPS}); {smi_line}")
+            if not all(checks.values()):
+                fail(f"phase 18a: checks failed {checks}")
+
+            # (b) after a small warm-up step of the sharded path, in turns:
+            # sharded, single, single, sharded
+            sh.train_step_sharded(mesh, scene.replace(spp=4, film_width=64, film_height=64),
+                                  torch.zeros((64, 64, 3), device=dev), depth_cap=BENCH_DEPTH)
+            secs, res = {"sharded": [], "single": []}, {}
+            for i, name in enumerate(("sharded", "single", "single", "sharded")):
+                if i == 0:
+                    reset_counts()
+                res[name], t = timed(lambda: train(name))
+                if i == 0:
+                    train_launches = read_counts()
+                secs[name].append(t)
+        finally:
+            dist.destroy_process_group()
+    (l_sh, g_sh), (l_1, g_1) = res["sharded"], res["single"]
+    loss_rel = abs(float(l_sh) - float(l_1)) / abs(float(l_1))
+    l1 = {k: rel_l1(g_sh[k], g_1[k]) for k in DEFAULT_TRAIN_LEAVES}
+    step_s = {k: sum(v) / len(v) for k, v in secs.items()}
+    checks = {"loss_rtol_1e-6": loss_rel <= 1e-6, "launches": train_launches == want_step,
+              **{f"grad_{k}": v <= 1e-5 for k, v in l1.items()}}
+    phase("18b", f"world size 1: train_step_sharded {step_s['sharded']:.4f} s/step, train_step "
+                 f"{step_s['single']:.4f} s/step (2 each, in turns: {secs}); loss {float(l_sh):.6e} "
+                 f"against {float(l_1):.6e} (relative {loss_rel:.3e}); relative L1 {l1}; "
+                 f"launches {train_launches} expected {want_step}; checks {checks}; {smi_line}")
+    if not all(checks.values()):
+        fail(f"phase 18b: checks failed {checks}")
+
+    # (c) two processes on the one card; a warm-up frame and step of other
+    # seeds take each process's first-call set-up (on an H100 80GB HBM3 a
+    # process's first gradient took 4.29 s, the next ones 0.23 s)
+    torch.cuda.empty_cache()
+    cpu_scene = scene.to("cpu")
+    render_kw = dict(chunk_size=BENCH_CHUNK, **kw)
+    train_kw = dict(target_rgb=target.cpu().numpy(), depth_cap=BENCH_DEPTH)
+    meshes = [(2,), (1, 2), (2, 1)]
+    tasks = ([("render", cpu_scene, (2,), dict(chunk_size=BENCH_CHUNK, seed=0,
+                                              depth_cap=BENCH_DEPTH)),
+              ("train", cpu_scene, (2,), dict(seed=2, **train_kw))]
+             + [("render", cpu_scene, m, render_kw) for m in meshes]
+             + [("train", cpu_scene, (2,), dict(seed=0, **train_kw)),
+                ("train", cpu_scene, (2,), dict(seed=0, chunk_size=BENCH_CHUNK, **train_kw))])
+    t0 = time.perf_counter()
+    ranks, start_s = sh.run_ranks(2, sh.sharded_job, tasks, backend="gloo", device="cuda")
+    wall_s = time.perf_counter() - t0
+    ref = film.cpu()
+    atol = 1e-6 * float(ref.abs().max())
+    checks, frame_s, film_err = {}, {}, {}
+    for i, m in enumerate(meshes, 2):
+        got = ranks[0][i][0]
+        film_err[str(m)] = float((got - ref).abs().max())
+        frame_s[str(m)] = max(r[i][1] for r in ranks)
+        checks[f"film_{m}"] = bool(torch.allclose(got, ref, rtol=1e-5, atol=atol))
+        checks[f"ranks_equal_{m}"] = all(r[i][0].equal(got) for r in ranks)
+    steps_c = {}
+    for i, name in ((5, "one_chunk"), (6, "chunked")):
+        (loss_i, g_i), step_i = ranks[0][i][0], max(r[i][1] for r in ranks)
+        l1_i = {k: rel_l1(g_i[k], g_1[k]) for k in DEFAULT_TRAIN_LEAVES}
+        steps_c[name] = {"s": step_i, "loss": float(loss_i), "rel_l1": l1_i}
+        checks[f"ranks_equal_train_{name}"] = all(
+            r[i][0][0].equal(loss_i) and all(r[i][0][1][k].equal(g_i[k]) for k in g_i)
+            for r in ranks)
+        checks.update({f"grad_{k}_{name}": v <= 1e-4 for k, v in l1_i.items()})
+    phase("18c", f"FUNCTIONAL ONLY, not a scaling result: 2 processes share one card over gloo "
+                 f"({smi_line}); group up {start_s:.2f} s after the spawn, {wall_s:.2f} s in "
+                 f"all; s/frame {frame_s} (largest difference from (a)'s film {film_err}, "
+                 f"atol {atol:.3e}); train_step_sharded, each rank's block in one chunk "
+                 f"and in chunks of {BENCH_CHUNK} lanes: {steps_c} (s/step, loss, relative L1 "
+                 f"against (b)'s train_step); checks {checks}")
+    if not all(checks.values()):
+        fail(f"phase 18c: checks failed {checks}")
+    _, dry_s = timed(lambda: graft_entry.dryrun_multichip(2, device="cuda"))
+    phase("18c", f"dryrun_multichip(2) on the card over gloo: {dry_s:.2f} s, processes "
+                 f"included; {smi_line}")
+    return {"world1": {"frame_s": shard_s, "render_frame_s": one_s, "frames_s": frames,
+                       "film_equal": equal,
+                       "film_max_diff": film_diff, "launches": launches,
+                       "allreduce_ms": reduce_ms, "allreduce_bytes": reduce_bytes,
+                       "step_s": step_s, "loss_rel": loss_rel, "grad_rel_l1": l1,
+                       "train_launches": train_launches},
+            "two_processes_one_card": {"start_s": start_s, "wall_s": wall_s,
+                                       "frame_s": frame_s, "film_max_diff": film_err,
+                                       "steps": steps_c, "dryrun_s": dry_s},
+            "device": smi_line}
+
+
 def run_bench():
     """The port's bench in its own process; its lines printed with a prefix.
     Fails unless it exits 0 with its headline on its first line."""
@@ -1877,6 +2092,9 @@ def main():
 
     # ---- phase 17: sppm and photonmapper, the density kernel
     photon = phase_ppm(envlit)
+
+    # ---- phase 18: sharding on torch.distributed (one card: functional, not scaling)
+    sharding = phase_sharding(smi_line)
     bench = run_bench()
 
     main_case = report["cbox_camera"]
@@ -1891,7 +2109,9 @@ def main():
                     ("teapot", "volume", "teapot_gradient", "volume_gradient")},
                  **{run: (photon[run]["launches"], 1 if run == "gallery_sppm" else N_FRAMES)
                     for run in ("cbox_sppm", "cbox_photonmapper", "envlit_sppm",
-                                "gallery_sppm")}}
+                                "gallery_sppm")},
+                 "cbox_sharded": (sharding["world1"]["launches"], 1),
+                 "cbox_train_step_sharded": (sharding["world1"]["train_launches"], 1)}
 
     def launches(key):
         return sum(counts.get(key, 0) for counts, _ in main_runs.values())
@@ -1990,7 +2210,8 @@ def main():
          "testballs": balls,
          **{path: {**r, "profile": new_profiles[path]} for path, r in new_paths.items()},
          "checkpoint": checkpoint, "cbox_train": train, "envlit_gradient": grad,
-         "volpath": volpath, "photon_mapping": photon, "bench": bench}, indent=1))
+         "volpath": volpath, "photon_mapping": photon, "sharding": sharding, "bench": bench},
+        indent=1))
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name,
                                              "count": torch.cuda.device_count()}}), flush=True)

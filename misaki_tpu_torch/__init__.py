@@ -8,3 +8,14 @@ tests/test_torch_*.py. It imports torch and numpy, never jax.
     python -m misaki_tpu_torch.cli misaki_tpu_torch/scenes/cbox/scene.xml \\
         -o cbox.png --device cuda
 """
+
+
+def __getattr__(name):
+    # lazy, as misaki_tpu/__init__.py:31-41: `import misaki_tpu_torch.core.*`
+    # pays for no scene code. No lazy `render`: it would shadow the render/
+    # subpackage once that is imported.
+    if name in ("load_file", "load_string"):
+        from misaki_tpu_torch.scene import loader
+
+        return getattr(loader, name)
+    raise AttributeError(name)

@@ -17,17 +17,18 @@ passes, and it is the same gradient:
 
 It is exact because the film is the sum of its chunks' splats, and a
 chunk's render is a deterministic function of its lanes and the seed
-(driver.py), whatever the chunk size.
+(driver.py), whatever the chunk size. For the same reason one process may
+differentiate a block of the frame's lanes while others render the rest
+(parallel/sharding.py `train_step_sharded`): the loss is taken on the sum
+of the blocks' films, and its film gradient goes back into the block's own.
 """
-
-import time
 
 import torch
 
 from misaki_tpu_torch.diff.leaves import get_leaves, replace_leaves
 from misaki_tpu_torch.render import driver
 from misaki_tpu_torch.render import film as film_mod
-from misaki_tpu_torch.tools.bench import quiet
+from misaki_tpu_torch.utils.logging import synced_clock
 
 # Lanes per autograd chunk: the graph of one chunk is what must fit on the
 # card. On an H100 80GB (chip_smoke.py phase 15 (d)) envlit's graph peaks at
@@ -39,14 +40,8 @@ from misaki_tpu_torch.tools.bench import quiet
 GRAD_CHUNK = 1 << 22
 
 
-def _sync(dev):
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    return time.perf_counter()
-
-
 def image_grads(scene, names, loss_fn, seed=0, depth_cap=4, chunk_size=GRAD_CHUNK,
-                stats=None):
+                stats=None, lanes=None, reduce=None):
     """-> (loss (0-d tensor), rgb (H, W, 3), {name: gradient of the loss})
     for `loss_fn(rgb)` of the `path`, `direct` or `volpath` image of `scene`, with
     respect to the leaves `names` (misaki_tpu_torch.diff.DIFF_LEAVES). A
@@ -54,6 +49,13 @@ def image_grads(scene, names, loss_fn, seed=0, depth_cap=4, chunk_size=GRAD_CHUN
     `render()` does) is differentiated in one pass; a larger one takes a
     primal in `render()`'s default chunks and a re-render in `chunk_size`
     chunks.
+
+    `lanes` (lane0, lane1), spp-aligned: the gradient of these lanes' film
+    only (by default the frame's). `reduce`: where given, a function that
+    sums a detached (C, flat) film over the processes that render the other
+    lanes, in place; the loss, the image and dL/dfilm are then the summed
+    film's, and dL/dfilm goes back into these lanes' film (`chunk_size` or
+    fewer lanes are rendered once, under autograd).
 
     `stats`: a dict that, where given, receives the seconds of the primal
     (0 in one pass) and of the render under autograd with its backward (the
@@ -66,43 +68,63 @@ def image_grads(scene, names, loss_fn, seed=0, depth_cap=4, chunk_size=GRAD_CHUN
     leaves = {k: v.detach().requires_grad_() for k, v in get_leaves(scene, names).items()}
     scene_g = replace_leaves(scene, leaves)
     n_total = W * H * spp
-    chunk = driver.pick_chunk(chunk_size, spp, n_total)
-    n_chunks = -(-n_total // chunk)
+    lane0, lane1 = (0, n_total) if lanes is None else lanes
+    chunk = driver.pick_chunk(chunk_size, spp, max(lane1 - lane0, 1))
+    n_chunks = -(-(lane1 - lane0) // chunk)
 
-    def chunk_image(c):
-        film_c = film_mod.new_film_flat(H, W, 5, scene.filter_type, scene.filter_stddev,
-                                        device=dev)
-        driver._render_chunk(scene_g, film_c, c * chunk, n_total, seed, chunk, depth_cap)
-        return film_mod.film_from_flat(film_c, H, W, scene.filter_type, scene.filter_stddev)
+    def new_flat():
+        return film_mod.new_film_flat(H, W, 5, scene.filter_type, scene.filter_stddev,
+                                      device=dev)
 
-    t0 = _sync(dev) if stats is not None else None
-    if n_chunks == 1:
+    def to_film(flat):
+        return film_mod.film_from_flat(flat, H, W, scene.filter_type, scene.filter_stddev)
+
+    def chunk_flat(c):
+        c0 = lane0 + c * chunk
+        return driver.render_lanes(scene_g, new_flat(), c0, min(c0 + chunk, lane1), seed,
+                                   chunk, depth_cap)
+
+    t0 = synced_clock(dev) if stats is not None else None
+    if stats is not None and dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    if n_chunks == 1 and reduce is None:
         # one pass: the loss of the frame's own graph
         t1 = t0
-        if stats is not None and dev.type == "cuda":
-            torch.cuda.reset_peak_memory_stats(dev)
-        rgb, _ = film_mod.develop(chunk_image(0))
+        rgb, _ = film_mod.develop(to_film(chunk_flat(0)))
         loss = loss_fn(rgb)
         if loss.requires_grad:
             loss.backward()
     else:
-        out = driver.render(scene, seed=seed, depth_cap=depth_cap, progress=quiet)
-        film = out["film"].clone().requires_grad_()
+        # the film of the lanes, under autograd where it is one chunk (kept
+        # for the backward), else a primal without a graph
+        own = chunk_flat(0) if n_chunks == 1 else None
+        if own is not None:
+            primal = own.detach().clone()
+        else:
+            with torch.inference_mode():
+                primal = driver.render_lanes(
+                    scene, new_flat(), lane0, lane1, seed,
+                    driver.pick_chunk(driver.DEFAULT_CHUNK, spp, max(lane1 - lane0, 1)),
+                    depth_cap)
+            primal = primal.clone()
+        if reduce is not None:
+            reduce(primal)
+        film = to_film(primal).clone().requires_grad_()
         rgb, _ = film_mod.develop(film)
         loss = loss_fn(rgb)
         (grad_film,) = torch.autograd.grad(loss, film)
         if stats is not None:
-            t1 = _sync(dev)
-            if dev.type == "cuda":
+            t1 = synced_clock(dev)
+            if dev.type == "cuda" and own is None:
                 torch.cuda.reset_peak_memory_stats(dev)
         for c in range(n_chunks):
-            img_c = chunk_image(c)
+            img_c = to_film(own if own is not None else chunk_flat(c))
             if img_c.requires_grad:
                 torch.autograd.backward(img_c, grad_film)
     grads = {k: v.grad if v.grad is not None else torch.zeros_like(v)
              for k, v in leaves.items()}
     if stats is not None:
-        t2 = _sync(dev)
+        t2 = synced_clock(dev)
         stats.update(primal_s=t1 - t0, backward_s=t2 - t1, chunk=chunk, chunks=n_chunks,
                      peak_bytes=torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
                      else None)

@@ -13,15 +13,16 @@ DEFAULT_TRAIN_LEAVES = ("materials", "rad_coeff", "rad_curve")
 
 
 def train_step(scene, target_rgb, seed=0, depth_cap=4, leaves=DEFAULT_TRAIN_LEAVES,
-               stats=None):
-    """-> (loss, {leaf: gradient}) of mean((rgb - target_rgb)^2); `stats`
-    as in `image_grads`. The scene is flipped into diff_mode, so microfacet
+               **grads_kw):
+    """-> (loss, {leaf: gradient}) of mean((rgb - target_rgb)^2);
+    `grads_kw` (`stats`, `chunk_size`, `lanes`, `reduce`) as in
+    `image_grads`. The scene is flipped into diff_mode, so microfacet
     alpha takes part through the detached-sampling estimator
     (misaki_tpu_torch.diff)."""
     target = torch.as_tensor(target_rgb, dtype=torch.float32, device=scene.device)
     loss, _, grads = image_grads(scene.replace(diff_mode=True), leaves,
                                  lambda rgb: torch.mean((rgb - target) ** 2), seed=seed,
-                                 depth_cap=depth_cap, stats=stats)
+                                 depth_cap=depth_cap, **grads_kw)
     return loss, grads
 
 

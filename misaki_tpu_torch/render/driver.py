@@ -84,6 +84,17 @@ def _render_chunk(scene, film_flat, lane0, n_total, seed, chunk, depth_cap):
     )
 
 
+def render_lanes(scene, film_flat, lane0, lane1, seed, chunk, depth_cap):
+    """Render the lanes [lane0, lane1) (spp-aligned) into the film in chunks
+    of `chunk` lanes, the last one cut at lane1: `_render_chunk` masks only
+    the lanes past the frame, so a chunk that ran on past lane1 would render
+    lanes of the range after it."""
+    n_total = scene.film_width * scene.film_height * scene.spp
+    for c0 in range(lane0, lane1, chunk):
+        _render_chunk(scene, film_flat, c0, n_total, seed, min(chunk, lane1 - c0), depth_cap)
+    return film_flat
+
+
 def pick_chunk(chunk_size, spp, n_total):
     """Largest spp-multiple <= chunk_size (min spp) so chunks stay
     pixel-aligned for the splat."""

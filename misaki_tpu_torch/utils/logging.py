@@ -6,6 +6,8 @@ import logging
 import sys
 import time
 
+import torch
+
 _logger = None
 
 
@@ -22,6 +24,14 @@ def get_logger():
             _logger.addHandler(h)
             _logger.setLevel(logging.INFO)
     return _logger
+
+
+def synced_clock(device):
+    """time.perf_counter() once the work queued on `device` has finished
+    (a CUDA device is synchronised; on the CPU the work is done already)."""
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+    return time.perf_counter()
 
 
 class Timer:

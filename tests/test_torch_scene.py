@@ -7,6 +7,7 @@ import sys
 
 import jax
 import numpy as np
+import misaki_tpu
 import pytest
 import torch
 
@@ -16,6 +17,7 @@ from misaki_tpu.accel import cluster as jcluster
 from misaki_tpu.scene.compiler import compile_scene as jcompile
 from misaki_tpu.scene.compiler import load_and_compile as jload
 from misaki_tpu.scene.loader import load_string as jload_string
+import misaki_tpu_torch
 from misaki_tpu_torch.accel import cluster as pcluster
 from misaki_tpu_torch.render.driver import render
 from misaki_tpu_torch.scene import from_compiled, procedural
@@ -208,7 +210,8 @@ def test_port_never_imports_jax():
         "  'misaki_tpu_torch.render.film', 'misaki_tpu_torch.render.driver',\n"
         "  'misaki_tpu_torch.bsdf.kernels', 'misaki_tpu_torch.emitter.kernels',\n"
         "  'misaki_tpu_torch.render.aov', 'misaki_tpu_torch.utils.logging',\n"
-        "  'misaki_tpu_torch.tools.bench']\n"
+        "  'misaki_tpu_torch.tools.bench', 'misaki_tpu_torch.parallel.sharding',\n"
+        "  'misaki_tpu_torch.graft_entry']\n"
         "for m in mods: importlib.import_module(m)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'misaki_tpu' or m.startswith('misaki_tpu.')]\n"
@@ -218,3 +221,28 @@ def test_port_never_imports_jax():
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
     assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
+
+
+def _same_desc(a, b):
+    """Two scene descriptions (nested dicts, lists and arrays) equal."""
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_same_desc(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(_same_desc(x, y) for x, y in zip(a, b))
+    if isinstance(a, np.ndarray):
+        return isinstance(b, np.ndarray) and np.array_equal(a, b)
+    return type(a) is type(b) and a == b
+
+
+def test_top_level_loaders():
+    """misaki_tpu_torch.load_file and load_string (lazy, as
+    misaki_tpu/__init__.py:31-41) give misaki_tpu.load_file's description
+    of the in-repo cbox."""
+    want = misaki_tpu.load_file(str(CBOX_XML))
+    assert _same_desc(misaki_tpu_torch.load_file(str(CBOX_XML)), want)
+    text = CBOX_XML.read_text()
+    assert _same_desc(misaki_tpu_torch.load_string(text, base_dir=CBOX_XML.parent),
+                      misaki_tpu.load_string(text, base_dir=CBOX_XML.parent))
+    assert _same_desc(misaki_tpu_torch.load_string(text, base_dir=CBOX_XML.parent), want)
+    with pytest.raises(AttributeError):
+        misaki_tpu_torch.__getattr__("render")
