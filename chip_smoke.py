@@ -6,8 +6,9 @@
 Phases, one line each; any failure exits non-zero:
   1. a CUDA device is present (name and power limit from nvidia-smi);
   2. the kernels build from csrc/cluster.cu, csrc/texel_fetch.cu and
-     csrc/ppm_density.cu with nvcc (sm_90a), one nvcc per source, started
-     together;
+     csrc/ppm_density.cu, and the density estimate's levers with its first,
+     dense kernel from tools/ppm_density_levers.cu, with nvcc (sm_90a), one nvcc
+     per source, started together;
   3. each cluster kernel against its plain PyTorch twin on the card: the
      bunny stand-in (20,480 faces, 160 clusters; its accel's host build
      timed) with 2^20 camera-like and 2^20 random rays, the Cornell box with
@@ -129,10 +130,16 @@ Phases, one line each; any failure exits non-zero:
      fetch's launches checked; (d) the gallery under sppm reduced to
      128x128, 2^14 photons, 2 iterations: glossy visible points (the plain
      pair path), point and constant-environment photons; (e) the density
-     kernel against its twin on frame (a)'s first splatted depth (262,144
-     photons against 65,536 visible points): counts equal, phi allclose
-     (rtol 1e-5, atol 1e-6 of the largest magnitude) in each of 10 calls,
-     the kernel's and the twin's device times and the bound; (f) a 64x48
+     estimate's grid kernel against its twin on the first splatted depth of
+     (a)'s and (b)'s frames (262,144 photons against 65,536 visible points,
+     with the frame's grid) and on the adversarial mix of
+     tools/profile_ppm_density.py: counts equal, phi allclose (rtol 1e-5,
+     atol 1e-6 of the largest magnitude) in each of 10 calls and equal to
+     the bit between calls; the kernel's device time beside the dense
+     kernel's (tools/ppm_density_levers.cu; in turns: the port, the dense
+     kernel twice, the port) and the twin's, the CUDA launches of one estimate, the
+     pairs it tested, the bound (inputs read and outputs written once,
+     against the passing pairs' operations) and the dense form's; (f) a 64x48
      cbox sppm render (8192 photons, 2 iterations) on cuda against the CPU;
      (g) a cbox sppm render (128x128, 2^16 photons, 4 iterations) stopped
      after iteration 3 and resumed from the per-iteration snapshot: equal
@@ -333,6 +340,7 @@ def reset_counts():
     tf.fetch_launches = 0
     tf.fetch_bwd_launches = 0
     ppm.density_launches = 0
+    ppm.density_cuda_launches = 0
 
 
 def read_counts():
@@ -1289,6 +1297,8 @@ def ppm_frames(scene, label, n_frames=N_FRAMES, warmup=None):
                  f"({n_frames} frames); launches {launches} expected {want}")
     if launches != want:
         fail(f"phase {label}: kernel launch counts {launches} != expected {want}")
+    # the CUDA kernels of those estimates, for the kernels line
+    launches["density_cuda"] = ppm.density_cuda_launches
     return out, dt, launches
 
 
@@ -1322,47 +1332,36 @@ def against_path(rgb, ref, block):
             float(np.corrcoef(lum(rgb), lum(ref))[0, 1]))
 
 
-def density_check(args, calls=10):
-    """The density kernel against its twin on one photon depth's inputs
-    captured from a frame: counts equal and phi allclose (rtol 1e-5, atol
-    1e-6 of the twin's largest magnitude) in each of `calls` calls; the
-    kernel's and the twin's device times and the bound: FP32 operations of
-    the pairs this run's data needs (15 a pair of a live visible point and
-    a photon that may contribute, 5 more a pair that passes) against the
-    bytes of the inputs and outputs."""
-    import torch
-
+def density_check(args, grid, calls=10):
+    """The density estimate's grid kernel against its twin on one photon
+    depth's inputs over `grid` (tools/profile_ppm_density.py `check`: counts
+    equal and phi allclose in each of `calls` calls, phi equal to the bit
+    between calls); the kernel's and the dense kernel's device times, in
+    turns (the port, the dense kernel twice, the port), the twin's, the CUDA
+    launches of one estimate, the pairs tested and the bounds (`bounds`: the
+    bytes the function needs read once and its outputs written once against
+    the FP32 operations of the alive photons and the passing pairs; the
+    dense form's beside it)."""
     from misaki_tpu_torch.render import ppm
-    from misaki_tpu_torch.tools.profile_cluster_frame import bound_ms, device_ms
+    from misaki_tpu_torch.tools import profile_ppm_density as pd
+    from misaki_tpu_torch.tools.profile_cluster_frame import device_ms
 
-    vp, r2, ph_p, ph_wi, ph_n, flux, ok, sppm_mode = args
-    ph, vps = ppm.pack_inputs(vp, r2, ph_p, ph_wi, ph_n, flux, ok)
-    lib = ppm.build()
-    phi_t, count_t = ppm.density_plain(*args)
-    scale = float(phi_t.abs().max())
-    counts_equal, close, max_err, used = True, True, 0.0, 0.0
-    for _ in range(calls):
-        phi, count = ppm.density_launch(lib, ph, vps, sppm_mode)
-        torch.cuda.synchronize()
-        counts_equal &= bool(torch.equal(count, count_t))
-        close &= bool(torch.allclose(phi, phi_t, rtol=1e-5, atol=1e-6 * scale))
-        err = (phi - phi_t).abs()
-        max_err = max(max_err, float(err.max()))
-        used = max(used, float((err / (1e-6 * scale + 1e-5 * phi_t.abs())).max()))
-    ms = device_ms(lambda: ppm.density_launch(lib, ph, vps, sppm_mode), 10)
-    plain_ms = device_ms(lambda: ppm.density_plain(*args), 2)
-    wiz = ph_wi[0] * ph_n[0] + ph_wi[1] * ph_n[1] + ph_wi[2] * ph_n[2]
-    n_live = int((vp["valid"] & ~vp["glossy"]).sum())
-    n_ok = int((ok & (wiz > 0.0)).sum())
-    pairs_passed = int(count_t.sum())
-    n_ops = 15 * n_live * n_ok + 5 * pairs_passed
-    n_bytes = 4 * (ph.numel() + vps.numel() + 5 * vps.shape[1])
-    bound, bound_by = bound_ms(n_bytes, n_ops)
-    return {"photons": ph.shape[1], "visible_points": vps.shape[1], "live_visible_points": n_live,
-            "contributing_photons": n_ok, "pairs_passed": pairs_passed,
-            "counts_equal": counts_equal, "allclose_every_call": close, "max_abs_err": max_err,
-            "tolerance_used": used, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-            "bound_by": bound_by, "ops": n_ops, "bytes": n_bytes}
+    sppm_mode = args[-1]
+    ph, vps = ppm.pack_inputs(*args[:-1])
+    lib, levers = ppm.build(), pd.load_levers()
+    want = ppm.density_plain(*args)
+    res = pd.check(lambda: ppm.density_launch(lib, ph, vps, sppm_mode, grid), want, calls)
+    res["dense_kernel"] = pd.check(lambda: pd.dense_launch(levers, ph, vps, sppm_mode), want, 1)
+    stats = {}
+    ppm.density_launch(lib, ph, vps, sppm_mode, grid, stats=stats, pair_tests=True)
+    res.update(pd.bounds(args, want), grid=list(grid.dims), cuda_launches=stats["cuda_launches"],
+               pair_tests=int(stats["pair_tests"].item()))
+    port, dense = (lambda: ppm.density_launch(lib, ph, vps, sppm_mode, grid),
+                  lambda: pd.dense_launch(levers, ph, vps, sppm_mode))
+    times = [device_ms(fn, 10) for fn in (port, dense, dense, port)]
+    res.update(ms_turns=times, ms=(times[0] + times[3]) / 2, dense_ms=(times[1] + times[2]) / 2,
+               plain_ms=device_ms(lambda: ppm.density_plain(*args), 2))
+    return res
 
 
 def phase_ppm(envlit):
@@ -1375,6 +1374,7 @@ def phase_ppm(envlit):
     from misaki_tpu_torch.render.driver import render
     from misaki_tpu_torch.scene.compiler import load_and_compile
     from misaki_tpu_torch.scenes.materials import assets as materials_assets
+    from misaki_tpu_torch.tools import profile_ppm_density as pd
     from misaki_tpu_torch.tools.bench import quiet
 
     res = {}
@@ -1423,18 +1423,10 @@ def phase_ppm(envlit):
             res["cbox_sppm"]["profile"] = try_profile(
                 lambda: render(one, seed=33, depth_cap=BENCH_DEPTH, progress=quiet), one_s,
                 label, "profile_cbox_sppm.txt", what="iteration")
-            # one depth's inputs to the density kernel, for (e)
-            estimate = ppm.density_estimate
-
-            def capture(*args):
-                captured.setdefault("args", args)
-                return estimate(*args)
-
-            ppm.density_estimate = capture
-            try:
-                render(scene, seed=21, depth_cap=BENCH_DEPTH, progress=quiet)
-            finally:
-                ppm.density_estimate = estimate
+        # the first splatted depth's inputs to the density estimate and the
+        # frame's grid, for (e)
+        captured[integrator] = pd.capture(integrator, width=BENCH_W, height=BENCH_H,
+                                          depth_cap=BENCH_DEPTH)
 
     # (c) envlit under sppm: envmap photon emission, bitmap visible points
     env = envlit.replace(integrator="sppm", ppm_photons=PPM_PHOTONS, ppm_iterations=PPM_ITERS,
@@ -1493,19 +1485,33 @@ def phase_ppm(envlit):
         fail(f"phase 17d: image checks failed {checks}")
     res["gallery_sppm"] = {"frame_s": dt, "launches": launches, "glossy_vps": glossy_vps}
 
-    # (e) the density kernel against its twin on frame (a)'s inputs
-    dens = density_check(captured["args"])
-    phase("17e", f"density kernel on cbox sppm photon depth 1: {dens['photons']} photons x "
-                 f"{dens['visible_points']} visible points ({dens['live_visible_points']} live, "
-                 f"{dens['contributing_photons']} photons that may contribute, "
-                 f"{dens['pairs_passed']} pairs passed): counts equal {dens['counts_equal']}, "
-                 f"phi allclose in every one of 10 calls {dens['allclose_every_call']} (max abs "
-                 f"err {dens['max_abs_err']:.3e}, {dens['tolerance_used']:.3f} of the tolerance "
-                 f"used); kernel_ms={dens['ms']:.4f} plain_ms={dens['plain_ms']:.4f} "
-                 f"bound_ms={dens['bound_ms']:.4f} ({dens['bound_by']}, {dens['ops']:.4e} ops)")
-    if not (dens["counts_equal"] and dens["allclose_every_call"]):
-        fail("phase 17e: the density kernel disagrees with its plain twin")
-    res["density_kernel"] = dens
+    # (e) the density estimate's grid kernel against its twin on (a)'s and
+    # (b)'s first splatted depth and on the adversarial mix
+    cells = {f"cbox_{i}": captured[i] for i in ("sppm", "photonmapper")}
+    cells["adversarial"] = (pd.to_args(*pd.mixed(), True, "cuda"), pd.adversarial_grid())
+    res["density_kernel"] = {}
+    for name, (args, grid) in cells.items():
+        dens = density_check(args, grid)
+        phase("17e", f"density estimate on {name}: {dens['photons']} photons x "
+                     f"{dens['visible_points']} visible points ({dens['live_visible_points']} "
+                     f"live, {dens['contributing_photons']} photons that may contribute, "
+                     f"{dens['pairs_passed']} pairs passed), grid {dens['grid']}: counts equal "
+                     f"{dens['counts_equal']}, phi allclose in every one of {dens['calls']} calls "
+                     f"{dens['allclose_every_call']} and equal to the bit between calls "
+                     f"{dens['bit_equal_between_calls']} (max abs err {dens['max_abs_err']:.3e}, "
+                     f"{dens['tolerance_used']:.3f} of the tolerance used); "
+                     f"{dens['cuda_launches']} CUDA launches an estimate, {dens['pair_tests']} "
+                     f"pairs tested (the dense form {dens['dense_pairs']}); kernel_ms="
+                     f"{dens['ms']:.4f} dense_kernel_ms={dens['dense_ms']:.4f} (in turns "
+                     f"{', '.join(f'{t:.4f}' for t in dens['ms_turns'])}) plain_ms="
+                     f"{dens['plain_ms']:.4f} bound_ms={dens['bound_ms']:.6f} ({dens['bound_by']}, "
+                     f"{dens['bytes']} bytes needed, {dens['alive_photons']} photons alive; "
+                     f"{dens['bound_ms'] / dens['ms']:.4f} of it) dense_form_bound_ms="
+                     f"{dens['dense_bound_ms']:.4f} ({dens['dense_bytes']} bytes; the dense "
+                     f"kernel at {dens['dense_bound_ms'] / dens['dense_ms']:.4f} of it)")
+        if not (dens["ok"] and dens["dense_kernel"]["ok"]):
+            fail(f"phase 17e: the density estimate disagrees with its plain twin on {name}")
+        res["density_kernel"][name] = dens
 
     # (f) CUDA against the CPU on a small cbox sppm render
     small = load_and_compile(str(SCENES / "cbox" / "sppm.xml"), width=64, height=48,
@@ -1874,18 +1880,19 @@ def main():
     from misaki_tpu_torch.scene.compiler import load_and_compile
     from misaki_tpu_torch.scenes.envlit import assets
     from misaki_tpu_torch.scenes.materials import assets as materials_assets
-    from misaki_tpu_torch.tools import profile_cluster_frame
+    from misaki_tpu_torch.tools import profile_cluster_frame, profile_ppm_density
     from misaki_tpu_torch.tools.bench import quiet
     from misaki_tpu_torch.tools.tie_case import merge_clusters
     from misaki_tpu_torch.utils import cuda_build
 
     # ---- phase 2: build, one nvcc per source, all started together
     t0 = time.perf_counter()
-    srcs = [cl.SRC, tf.SRC, ppm.SRC]
+    srcs = [cl.SRC, tf.SRC, ppm.SRC, profile_ppm_density.LEVERS_SRC]
     libs = cuda_build.compile_sources(srcs)
     cl.build()
     tf.build()
     ppm.build()
+    profile_ppm_density.load_levers()
     phase("2", f"built {', '.join(p.name for p in libs)} from "
                f"{', '.join(str(src.relative_to(ROOT)) for src in srcs)} in "
                f"{time.perf_counter() - t0:.2f} s")
@@ -2120,7 +2127,8 @@ def main():
         return {run: counts.get(key, 0) / frames for run, (counts, frames) in main_runs.items()}
 
     bwd, bp = grad["backward_kernel"], grad["backward_on_path"]
-    dens = photon["density_kernel"]
+    dens_all = photon["density_kernel"]
+    dens = dens_all["cbox_sppm"]
     n_bp = len(bp["launches"])
 
     kernels = {"kernels": [
@@ -2191,11 +2199,23 @@ def main():
          "replaces": "misaki_tpu/render/ppm.py:282",
          "replaces_note": "no Pallas kernel: _density_blocks is an XLA matmul per 2048-photon "
                           "block",
+         "design": "redesigned: photons binned by a stable radix sort into a grid, each "
+                   "visible point tests the cells its radius reaches (first design: dense)",
+         # launches: estimates (ppm.density_launches); cuda_launches: the CUDA
+         # kernels those estimates enqueued (ppm.density_cuda_launches)
          "launches": launches("density"),
          "launches_per_frame": per_frame("density"),
-         "max_abs_err": dens["max_abs_err"], "ms": dens["ms"], "plain_ms": dens["plain_ms"],
-         "bound_ms": dens["bound_ms"], "bound_by": dens["bound_by"], "library_ms": None,
-         "tolerance_used": dens["tolerance_used"], "pairs_passed": dens["pairs_passed"]},
+         "cuda_launches": launches("density_cuda"),
+         "cuda_launches_per_frame": per_frame("density_cuda"),
+         "cuda_launches_per_estimate": dens["cuda_launches"],
+         "max_abs_err": max(d["max_abs_err"] for d in dens_all.values()), "ms": dens["ms"],
+         "plain_ms": dens["plain_ms"], "bound_ms": dens["bound_ms"],
+         "bound_by": dens["bound_by"], "library_ms": None,
+         "dense_form_bound_ms": dens["dense_bound_ms"], "dense_kernel_ms": dens["dense_ms"],
+         "pair_tests": dens["pair_tests"], "pairs_passed": dens["pairs_passed"],
+         "tolerance_used": max(d["tolerance_used"] for d in dens_all.values()),
+         **{f"{cell}_{k}": dens_all[cell][k] for cell in dens_all if cell != "cbox_sppm"
+            for k in ("ms", "dense_ms", "plain_ms", "bound_ms", "dense_bound_ms", "pair_tests")}},
     ]}
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
         {"device": device_name, "nvidia_smi": smi_line, "cluster_kernels": report,
@@ -2265,7 +2285,7 @@ def try_profile(run, run_s, label, table_name, what="frame", closest_per_chunk=N
     (closest_t, n_closest), (any_t, n_any) = named("closest_hit"), named("any_hit")
     cluster_t = closest_t + any_t
     fetch_t, n_fetch = named("fetch4")
-    density_t, n_density = named("density_kernel")
+    density_t, n_density = named("density_")
     kernels.sort(key=lambda e: -self_time(e))
     top = "; ".join(f"{e.key[:60]} {self_time(e) / 1e3:.3f} ms x{e.count}" for e in kernels[:6])
     cast_ms = {"closest": 1e3 * closest_t / max(n_closest, 1), "anyhit": 1e3 * any_t / max(n_any, 1)}
@@ -2277,8 +2297,8 @@ def try_profile(run, run_s, label, table_name, what="frame", closest_per_chunk=N
                  f"each; any hit {any_t:.4f} s over {n_any}, {cast_ms['anyhit']:.4f} ms each), "
                  f"texel fetch {fetch_t:.4f} s = {fetch_t / busy:.3f} over {n_fetch} launches, "
                  f"{fetch_ms:.4f} ms each"
-                 + (f", density kernel {density_t:.4f} s = {density_t / busy:.3f} over "
-                    f"{n_density} launches" if n_density else "")
+                 + (f", density estimate's kernels {density_t:.4f} s = {density_t / busy:.3f} "
+                    f"over {n_density} launches" if n_density else "")
                  + f"; top: {top}")
     out = {"launches": launches, "busy_s": busy, "busy_share": busy / run_s,
            "cluster_s": cluster_t, "cluster_share": cluster_t / busy, "fetch_s": fetch_t,

@@ -10,15 +10,20 @@ and the flux (sppm.cpp:296-318). Per-pixel state accumulates in XYZ, since
 each iteration draws its own hero wavelengths, shared by the camera and the
 photon lanes.
 
-Density estimation is a dense all-pairs sum of one photon depth against
-every visible point, as in misaki_tpu. On a CUDA tensor `density_estimate`
-launches the hand-written kernel `csrc/ppm_density.cu` `density_kernel`,
-one thread per visible point with the photons staged through shared memory;
-on a CPU tensor it takes the plain twin `density_plain`, misaki_tpu's
+Density estimation sums, for every visible point, the photons of one depth
+within its radius and hemisphere. On a CUDA tensor `density_estimate`
+launches the hand-written grid design of `csrc/ppm_density.cu`: the photons
+binned into a uniform grid by a stable radix sort, then each live visible
+point tests only the photons of the cells its radius reaches. The grid
+(`Grid`, from the scene's bounding sphere and the initial radius) is made
+once a frame in `render_ppm`, so no estimate waits on the host. On a CPU
+tensor the estimate takes the plain twin `density_plain`, misaki_tpu's
 blocked form (a (B, L) mask and a (4, B) x (B, L) matmul per 2048-photon
 block, misaki_tpu/render/ppm.py:282-338). Both take the same float32
 expressions and the kernel is built without fused multiply-add, so their
 masks and counts agree to the bit; only the order of the flux sums differs.
+`density_binned_plain` walks the kernel's grid in plain PyTorch, for the
+tests.
 
 Glossy visible points (sppm only: parked at the depth cap on a rough
 conductor, rough dielectric or Disney lobe, sppm.cpp:146-151) are estimated
@@ -35,7 +40,9 @@ path integrator makes them, one more for envmap photon emission.
 """
 
 import ctypes
+import math
 import os
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -67,8 +74,16 @@ _GLOSSY_KINDS = (BSDF_ROUGH_CONDUCTOR, BSDF_ROUGH_DIELECTRIC, BSDF_DISNEY)
 _M32 = 0xFFFFFFFF
 
 # Launch count of the density kernel: `density_estimate` adds one where it
-# launches it, and nowhere else.
+# launches it (one estimate, several CUDA kernels), and nowhere else.
 density_launches = 0
+# The CUDA kernels those estimates enqueued (the binning's and the gather's).
+density_cuda_launches = 0
+
+GRID_AXIS = 128   # most cells of the density grid an axis
+# the gather's margin r' = sqrt(r2) * REL_MARGIN + ABS_MARGIN, each step in
+# float32 (csrc/ppm_density.cu derives it): 1 + 2^-16 and 2^-64
+REL_MARGIN = 1.0 + 2.0 ** -16
+ABS_MARGIN = 2.0 ** -64
 
 
 def depth_budget(scene, depth_cap):
@@ -293,12 +308,133 @@ def density_plain(vp, radius2, ph_p, ph_wi, ph_n, ph_flux, ph_ok, sppm_mode):
     return phi, count
 
 
+class Grid(NamedTuple):
+    """The density estimate's uniform grid: float32 origin `lo` (3,) and
+    inverse cell size `inv_h`, `dims` (nx, ny, nz) cells. A coordinate x
+    lies in cell clamp(floor((x - lo) * inv_h), 0, n - 1) of its axis, a
+    point in cell (z * ny + y) * nx + x."""
+    lo: tuple
+    inv_h: np.float32
+    dims: tuple
+
+    @property
+    def n_cells(self):
+        return self.dims[0] * self.dims[1] * self.dims[2]
+
+
+def density_grid(center, radius, r0):
+    """The grid over the cube of half-side `radius` about `center` (3,):
+    cells of h = max(r0, 2 radius / GRID_AXIS), at most GRID_AXIS an axis.
+    A point outside the cube falls into a border cell; no estimate depends
+    on the grid, only the number of pairs it tests."""
+    R = max(float(radius), 0.0)
+    h = max(float(r0), 2.0 * R / GRID_AXIS)
+    if not h > 0.0:
+        h = 1.0
+    inv_h = np.float32(1.0 / h)
+    if not inv_h > 0.0:
+        inv_h = np.float32(np.finfo(np.float32).tiny)
+    n = int(min(GRID_AXIS, max(1, math.ceil(2.0 * R * float(inv_h)))))
+    lo = tuple(np.float32(float(c) - R) for c in np.asarray(center, np.float64).reshape(3))
+    return Grid(lo, inv_h, (n, n, n))
+
+
+def initial_radius(scene):
+    """The gather radius of the first iteration: `ppm_radius`, or where it is
+    not set a fraction of the scene's bounding sphere
+    (misaki_tpu/render/ppm.py:582-585)."""
+    r0 = float(scene.ppm_radius)
+    if r0 <= 0.0:
+        r0 = 0.025 * float(torch.clamp(scene.emitters.bsphere_radius, min=1e-3))
+    return r0
+
+
+def scene_grid(scene, r0):
+    """The grid of a frame: the scene's bounding sphere's cube, cells of the
+    initial radius `r0` (the radius only shrinks in sppm)."""
+    em = scene.emitters
+    return density_grid(torch.as_tensor(em.bsphere_center).cpu().numpy(),
+                        float(em.bsphere_radius), r0)
+
+
+def _cells(x, lo, inv_h, n):
+    """The cell of each coordinate x (float32) on an axis of `n` cells: the
+    kernel's cell_of, fmax / fmin passing NaN over as fmaxf / fminf do."""
+    t = (x - lo) * inv_h
+    t = torch.fmin(torch.fmax(t, torch.zeros_like(t)), torch.full_like(t, float(n - 1)))
+    return torch.floor(t).to(torch.int64)
+
+
+def density_binned_plain(vp, radius2, ph_p, ph_wi, ph_n, ph_flux, ph_ok, sppm_mode, grid,
+                         stats=None):
+    """The grid design of the density kernel in plain PyTorch, for the tests
+    and the profile: the photons that may contribute keyed by cell and
+    stably sorted (the others keyed past every cell), the offsets of every
+    cell, and each live visible point's cells cell(p - r') .. cell(p + r')
+    walked in (z, y) rows, with the twin's pair test on every photon found.
+    The contract of `density_plain`. `stats`, a dict, gets "pair_tests"."""
+    dev = radius2.device
+    L, P = radius2.shape[0], ph_ok.shape[0]
+    nx, ny, _ = grid.dims
+    n_cells = grid.n_cells
+    f32 = dict(dtype=torch.float32, device=dev)
+    lo = [torch.tensor(v, **f32) for v in grid.lo]
+    inv_h = torch.tensor(grid.inv_h, **f32)
+    wiz = ph_wi[0] * ph_n[0] + ph_wi[1] * ph_n[1] + ph_wi[2] * ph_n[2]
+    ok = torch.nonzero(ph_ok & (wiz > 0.0)).squeeze(1)
+    key = torch.full((P,), n_cells, dtype=torch.int64, device=dev)
+    c = [_cells(ph_p[k][ok], lo[k], inv_h, grid.dims[k]) for k in range(3)]
+    key[ok] = (c[2] * ny + c[1]) * nx + c[0]
+    sorted_key, perm = torch.sort(key, stable=True)
+    offsets = torch.searchsorted(sorted_key, torch.arange(n_cells + 1, device=dev))
+
+    ids = torch.nonzero(vp["valid"] & ~vp["glossy"]).squeeze(1)
+    r2 = radius2[ids]
+    rr = m.sqrt(r2) * torch.tensor(REL_MARGIN, **f32) + torch.tensor(ABS_MARGIN, **f32)
+    p = [vp["p"][k][ids] for k in range(3)]
+    c0 = [_cells(p[k] - rr, lo[k], inv_h, grid.dims[k]) for k in range(3)]
+    c1 = [_cells(p[k] + rr, lo[k], inv_h, grid.dims[k]) for k in range(3)]
+
+    def ragged(lengths):
+        """(owner, k): for each owner its items k = 0 .. lengths - 1."""
+        owner = torch.repeat_interleave(torch.arange(lengths.shape[0], device=dev), lengths)
+        start = torch.cumsum(lengths, 0) - lengths
+        return owner, torch.arange(owner.shape[0], device=dev) - start[owner]
+
+    # the rows (z, y) of each visible point's box, then the photons of each
+    # row's span [offsets[row + x0], offsets[row + x1 + 1])
+    span_y = c1[1] - c0[1] + 1
+    v, k = ragged((c1[2] - c0[2] + 1) * span_y)
+    row = ((c0[2][v] + k // span_y[v]) * ny + c0[1][v] + k % span_y[v]) * nx
+    start, end = offsets[row + c0[0][v]], offsets[row + c1[0][v] + 1]
+    r, k = ragged(end - start)
+    v, j = v[r], perm[start[r] + k]
+    i = ids[v]
+    if stats is not None:
+        stats["pair_tests"] = int(j.shape[0])
+
+    a = vp["wi"] if sppm_mode else vp["n"]
+    e = ph_n if sppm_mode else ph_wi
+    dx = ph_p[0][j] - vp["p"][0][i]
+    dy = ph_p[1][j] - vp["p"][1][i]
+    dz = ph_p[2][j] - vp["p"][2][i]
+    d2 = dx * dx + dy * dy + dz * dz
+    cosw = e[0][j] * a[0][i] + e[1][j] * a[1][i] + e[2][j] * a[2][i]
+    hit = (d2 < r2[v]) & (cosw > 0.0)
+    phi = torch.zeros((4, L), device=dev).index_add_(1, i[hit], ph_flux[:, j[hit]])
+    count = torch.zeros(L, device=dev).index_add_(
+        0, i[hit], torch.ones(int(hit.sum()), device=dev))
+    return phi, count
+
+
 def build():
     """Compile csrc/ppm_density.cu with nvcc for sm_90a (once per source
     hash) and load it. Returns the ctypes library."""
-    p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    p, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     return cuda_build.load_library(SRC, {
-        "density_launch": ([p, i64, p, i64, i32, p, p, p], i32),
+        "density_workspace_bytes": ([i64, i64], i64),
+        "density_launch": ([p, i64, p, i64, i32, f32, f32, f32, f32, i32, i32, i32, p, i64, p, p,
+                            p, p, p], i32),
     })
 
 
@@ -311,38 +447,65 @@ def pack_inputs(vp, radius2, ph_p, ph_wi, ph_n, ph_flux, ph_ok):
     return ph, vps
 
 
-def density_launch(lib, ph, vps, sppm_mode):
-    """The density kernel of library `lib` on packed CUDA inputs:
-    (phi (4, L), count (L,))."""
+def check_packed(ph, vps):
     if ph.dtype != torch.float32 or vps.dtype != torch.float32 or ph.shape[0] != 14 \
             or vps.shape[0] != 11 or not (ph.is_contiguous() and vps.is_contiguous()):
         raise ValueError("the density kernel takes contiguous float32 (14, P) photons and "
                          f"(11, L) visible points, got {tuple(ph.shape)}, {tuple(vps.shape)}")
-    L = vps.shape[1]
+
+
+def grid_args(grid):
+    """The grid as the launchers take it: lo_x, lo_y, lo_z, inv_h, nx, ny, nz."""
+    return (*(float(v) for v in grid.lo), float(grid.inv_h), *(int(n) for n in grid.dims))
+
+
+def density_launch(lib, ph, vps, sppm_mode, grid, stats=None, pair_tests=False):
+    """One estimate of library `lib` on packed CUDA inputs over `grid`:
+    (phi (4, L), count (L,)). `stats`, a dict, gets "cuda_launches" (the
+    kernels one estimate enqueues) and, with `pair_tests`, "pair_tests" (a
+    device tensor: the pairs the gather tested)."""
+    check_packed(ph, vps)
+    L, P = vps.shape[1], ph.shape[1]
     phi = torch.empty((4, L), dtype=torch.float32, device=vps.device)
     count = torch.empty(L, dtype=torch.float32, device=vps.device)
     if L == 0:
         return phi, count
+    n_bytes = lib.density_workspace_bytes(P, grid.n_cells)
+    if n_bytes < 0:
+        raise ValueError(f"no density workspace for {P} photons and {grid.n_cells} cells")
+    work = torch.empty(n_bytes, dtype=torch.uint8, device=vps.device)
+    tests = torch.zeros(1, dtype=torch.int64, device=vps.device) if pair_tests else None
+    launches = ctypes.c_int(0)
     stream = torch.cuda.current_stream(vps.device).cuda_stream
     cuda_build.check_launch(lib.density_launch(
-        ph.data_ptr(), ph.shape[1], vps.data_ptr(), L, int(bool(sppm_mode)), phi.data_ptr(),
-        count.data_ptr(), stream), "density kernel")
+        ph.data_ptr(), P, vps.data_ptr(), L, int(bool(sppm_mode)), *grid_args(grid),
+        work.data_ptr(), n_bytes, phi.data_ptr(), count.data_ptr(),
+        None if tests is None else tests.data_ptr(), ctypes.byref(launches), stream),
+        "density kernel")
+    if stats is not None:
+        stats["cuda_launches"] = launches.value
+        if pair_tests:
+            stats["pair_tests"] = tests
     return phi, count
 
 
-def density_estimate(vp, radius2, ph_p, ph_wi, ph_n, ph_flux, ph_ok, sppm_mode):
+def density_estimate(vp, radius2, ph_p, ph_wi, ph_n, ph_flux, ph_ok, sppm_mode, grid=None):
     """One photon depth's density estimate against every visible point (the
-    contract of `density_plain`). CPU tensors take the plain twin; CUDA
-    tensors launch the kernel."""
-    global density_launches
+    contract of `density_plain`). CPU tensors take the plain twin (`grid`
+    unused); CUDA tensors launch the kernel over `grid`, which they need."""
+    global density_launches, density_cuda_launches
     dev = radius2.device
     if dev.type == "cpu":
         return density_plain(vp, radius2, ph_p, ph_wi, ph_n, ph_flux, ph_ok, sppm_mode)
     if dev.type != "cuda":
         raise ValueError(f"no density kernel for device {dev}")
+    if grid is None:
+        raise ValueError("the density kernel needs a grid (`scene_grid` of the frame)")
+    stats = {}
     out = density_launch(build(), *pack_inputs(vp, radius2, ph_p, ph_wi, ph_n, ph_flux, ph_ok),
-                         sppm_mode)
+                         sppm_mode, grid, stats=stats)
     density_launches += 1
+    density_cuda_launches += stats.get("cuda_launches", 0)
     return out
 
 
@@ -407,10 +570,10 @@ def _density_glossy(vp, radius2, ph_p, ph_sh, ph_wi_local, ph_flux, ph_ok):
     return phi, count
 
 
-def _photon_pass(scene, it, seed, wavelengths, vp, radius2, budget, sppm_mode):
+def _photon_pass(scene, it, seed, wavelengths, vp, radius2, budget, sppm_mode, grid):
     """Trace `photon_count(scene)` photons and splat each depth against the
-    visible points (misaki_tpu/render/ppm.py:403-489); no photon is stored
-    beyond the live wavefront. Returns (phi (4, L) of the diffuse visible
+    visible points over `grid` (misaki_tpu/render/ppm.py:403-489); no photon
+    is stored beyond the live wavefront. Returns (phi (4, L) of the diffuse visible
     points, phi_g (4, L) of the glossy ones, count (L,))."""
     P = photon_count(scene)
     dev = radius2.device
@@ -442,7 +605,7 @@ def _photon_pass(scene, it, seed, wavelengths, vp, radius2, budget, sppm_mode):
         # camera pass has no NEE, splats every depth (photonmapper.cpp:133-138)
         if not (sppm_mode and depth == 0):
             dphi, dcount = density_estimate(vp, radius2, si["p"], vec.neg(d), si["sh"]["n"],
-                                            flux, alive, sppm_mode)
+                                            flux, alive, sppm_mode, grid=grid)
             phi, count = phi + dphi, count + dcount
             if glossy:
                 gphi, gcount = _density_glossy(vp, radius2, si["p"], si["sh"], si["wi"],
@@ -470,12 +633,15 @@ def _photon_pass(scene, it, seed, wavelengths, vp, radius2, budget, sppm_mode):
     return phi, phi_g, count
 
 
-def ppm_iteration(scene, st, it, seed, budget, sppm_mode):
+def ppm_iteration(scene, st, it, seed, budget, sppm_mode, grid=None):
     """One iteration (misaki_tpu/render/ppm.py:492-547): the iteration's
-    wavelengths, the camera pass, the photon pass, then the per-pixel update
+    wavelengths, the camera pass, the photon pass (its estimates over
+    `grid`, default the scene's `scene_grid`), then the per-pixel update
     of st = {value, tau (3, L) XYZ, n, radius, alpha (L,), iters ()}: in
     sppm the radius and tau shrink with gamma = 2/3 (sppm.cpp:296-318), the
     photonmapper keeps its radius. Returns the new state."""
+    if grid is None:
+        grid = scene_grid(scene, initial_radius(scene))
     L = st["radius"].shape[0]
     dev = st["radius"].device
     u_wav, _ = rng.next_float32(rng.seed(
@@ -486,7 +652,7 @@ def ppm_iteration(scene, st, it, seed, budget, sppm_mode):
     value, vp, primary_hit = _camera_pass(scene, it, seed, wavelengths, budget, sppm_mode, rad)
     radius2 = st["radius"] * st["radius"]
     phi, phi_g, mcount = _photon_pass(scene, it, seed, wavelengths, vp, radius2, budget,
-                                      sppm_mode)
+                                      sppm_mode, grid)
 
     # the visible point's factors: rho / pi and the path throughput for the
     # diffuse pairs; glossy pairs carry their full BSDF
@@ -539,10 +705,9 @@ def render_ppm(scene, seed=0, depth_cap=16, checkpoint_path=None, checkpoint_eve
     sppm_mode = scene.integrator == "sppm"
     budget = depth_budget(scene, depth_cap)
     iters = max(int(scene.ppm_iterations), 1)
-    r0 = float(scene.ppm_radius)
-    if r0 <= 0.0:
-        # auto radius: a fraction of the scene's bounding sphere
-        r0 = 0.025 * float(torch.clamp(scene.emitters.bsphere_radius, min=1e-3))
+    r0 = initial_radius(scene)
+    # the density grid, made once a frame: no estimate waits on the host
+    grid = scene_grid(scene, r0)
 
     with torch.inference_mode():
         st = {"value": torch.zeros((3, L), device=dev), "tau": torch.zeros((3, L), device=dev),
@@ -564,7 +729,7 @@ def render_ppm(scene, seed=0, depth_cap=16, checkpoint_path=None, checkpoint_eve
                         "fresh", checkpoint_path, str(data["fingerprint"]), fingerprint)
 
         for it in range(start, iters):
-            st = ppm_iteration(scene, st, it, int(seed), budget, sppm_mode)
+            st = ppm_iteration(scene, st, it, int(seed), budget, sppm_mode, grid)
             if progress is not None:
                 progress(it + 1, iters)
             if (checkpoint_path is not None and checkpoint_every > 0

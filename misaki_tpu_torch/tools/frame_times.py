@@ -1,7 +1,7 @@
 """Seconds per frame of the port's benchmark scenes on the card, one JSON
 line per scene, for comparing two versions of the package on one card:
 
-    python misaki_tpu_torch/tools/frame_times.py [--root DIR] [--tag NAME]
+    python misaki_tpu_torch/tools/frame_times.py [--root DIR] [--tag NAME] [--ppm]
 
 `--root` names the checkout whose `misaki_tpu_torch` is timed (default: the
 one holding this file), so that this script times an older checkout's
@@ -16,6 +16,11 @@ The scenes, at chip_smoke.py's spec (depth cap 4, 2^20-lane chunks):
   * figure2 / figure3: scenes/testball/roughconductor.xml and
     roughdielectric.xml at their declared 1280x720 x 128 spp, 2 frames each
     after a 128x72 x 4 spp warm-up.
+
+With `--ppm`, the photon integrators' frames instead: cbox under
+scenes/cbox/sppm.xml and photonmapper.xml at 256x256 x 262,144 photons x 8
+iterations (chip_smoke.py phase 17's spec), 3 frames each after a 64x64
+warm-up with 2^14 photons.
 
 Each is timed over frames of varied seeds after a warm-up frame, the host
 clock ended by torch.cuda.synchronize(). Each line has the scene, the
@@ -79,6 +84,8 @@ def main(argv=None):
     p.add_argument("--tag", default="")
     p.add_argument("--sampler", action="store_true",
                    help="also time the rough dielectric sampler in float32 and float64")
+    p.add_argument("--ppm", action="store_true",
+                   help="time the photon integrators' cbox frames instead")
     args = p.parse_args(argv)
     root = Path(args.root).resolve()
     sys.path.insert(0, str(root))
@@ -102,6 +109,9 @@ def main(argv=None):
         ("figure3", scenes / "testball" / "roughdielectric.xml", 2, {},
          dict(spp=4, width=128, height=72)),
     )
+    if args.ppm:
+        cases = tuple((f"cbox_{i}", scenes / "cbox" / f"{i}.xml", 3, dict(width=256, height=256),
+                       dict(width=64, height=64)) for i in ("sppm", "photonmapper"))
     dev = device_line(torch.device("cuda"))
     if args.sampler:
         print(json.dumps({"sampler": sampler_cost(), "lanes": CHUNK, "tag": args.tag,
@@ -112,6 +122,8 @@ def main(argv=None):
             # the XML declares max_depth -1; capped as tools/bench.py caps it
             scene = scene.replace(max_depth=DEPTH_CAP + 1)
         warm = scene if warm_kw is None else load_and_compile(str(xml), **warm_kw)
+        if args.ppm:
+            warm = warm.replace(ppm_photons=1 << 14)
         render(warm, seed=0, chunk_size=CHUNK, depth_cap=DEPTH_CAP, progress=quiet)
         torch.cuda.synchronize()
         each = []

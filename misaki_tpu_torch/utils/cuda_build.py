@@ -2,8 +2,9 @@
 use, and load them with ctypes.
 
 Each source is compiled on its own with nvcc for sm_90a into
-`build/misaki_tpu_torch/<stem>_<hash>.so`, the hash taken over the source
-and the flags, so an edited source is rebuilt and an unchanged one is not.
+`build/misaki_tpu_torch/<stem>_<hash>.so`, the hash taken over the source,
+the files it includes by a quoted path, and the flags, so an edited source
+is rebuilt and an unchanged one is not.
 The libraries have a plain C interface: pointers and the stream go in as
 `c_void_p`, and each launch function returns the CUDA error code.
 """
@@ -11,6 +12,7 @@ The libraries have a plain C interface: pointers and the stream go in as
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -34,11 +36,27 @@ def _nvcc():
     return str(Path(cuda_home) / "bin" / "nvcc")
 
 
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def _source_bytes(src, seen=None):
+    """The bytes of `src` and, once each, of the files it includes by a
+    quoted path relative to it."""
+    seen = set() if seen is None else seen
+    src = src.resolve()
+    if src in seen:
+        return b""
+    seen.add(src)
+    data = src.read_bytes()
+    return data + b"".join(_source_bytes(src.parent / inc.decode(), seen)
+                           for inc in _LOCAL_INCLUDE.findall(data))
+
+
 def library_path(src):
     """Where the library of source `src` is built: named by the hash of the
-    source and the flags."""
+    source, its local includes and the flags."""
     src = Path(src)
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(_source_bytes(src) + " ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{src.stem}_{h.hexdigest()[:16]}.so"
 
 

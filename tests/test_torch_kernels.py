@@ -17,7 +17,8 @@ order as its twin: equal to the bit. The texel fetch's backward adds with
 atomics in an order that varies from run to run: held to its twin with
 allclose(rtol 1e-5, atol 1e-6 of the twin's largest magnitude). The
 photon density kernel's counts equal the twin's and its flux sums are held
-to the same allclose (photon order against the twin's matmuls).
+to the same allclose (a grid's cell order against the twin's matmuls), and
+two calls on the same inputs give the same bits.
 """
 
 from dataclasses import replace
@@ -38,7 +39,8 @@ from misaki_tpu_torch.scene import procedural
 from misaki_tpu_torch.scene.compiler import load_and_compile
 from misaki_tpu_torch.scenes.envlit import assets
 from misaki_tpu_torch.scenes.materials import assets as materials_assets
-from misaki_tpu_torch.tools import profile_cluster_frame, profile_texel_fetch_levers
+from misaki_tpu_torch.tools import (profile_cluster_frame, profile_ppm_density,
+                                    profile_texel_fetch_levers)
 from misaki_tpu_torch.tools.tie_case import merge_clusters
 
 pytestmark = pytest.mark.cuda
@@ -642,8 +644,10 @@ def test_density_kernel_matches_twin(sppm_mode):
     visible points and 5000 photons around them (neither a multiple of the
     block): the counts equal (the same float32 pair tests, no fused
     multiply-add), phi allclose(rtol 1e-5, atol 1e-6 of the twin's largest
-    magnitude): the kernel sums the flux in photon order, the twin by
-    matmuls. One launch, counted."""
+    magnitude): the kernel sums the flux in cell order, the twin by
+    matmuls; a second estimate gives phi equal to the bit. One estimate
+    (over a grid of the unit cube, cells of the largest radius), counted
+    once; without a grid the estimate raises."""
     from misaki_tpu_torch.render import ppm
 
     rs = np.random.default_rng(4)
@@ -666,32 +670,81 @@ def test_density_kernel_matches_twin(sppm_mode):
     ph_p = tuple(cuda(c) for c in vp_p[:, near] + rs.normal(0.0, 0.04, (3, P)))
     args = (vp, r2, ph_p, unit(P), unit(P), cuda(rs.uniform(0.0, 2.0, (4, P))),
             cuda(rs.uniform(size=P) < 0.8, torch.bool), sppm_mode)
+    grid = ppm.density_grid((0.5, 0.5, 0.5), 0.5, 0.08)
     before = ppm.density_launches
-    phi, count = ppm.density_estimate(*args)
+    phi, count = ppm.density_estimate(*args, grid=grid)
     torch.cuda.synchronize()
     assert ppm.density_launches == before + 1
     phi_t, count_t = ppm.density_plain(*args)
     assert torch.equal(count, count_t) and float(count.sum()) > 1000
     scale = float(phi_t.abs().max())
     torch.testing.assert_close(phi, phi_t, rtol=1e-5, atol=1e-6 * scale)
+    assert torch.equal(ppm.density_estimate(*args, grid=grid)[0], phi)
+    with pytest.raises(ValueError, match="grid"):
+        ppm.density_estimate(*args)
+
+
+@pytest.mark.parametrize("sppm_mode", [True, False])
+@pytest.mark.parametrize("case", profile_ppm_density.CASES + ("mixed",))
+def test_density_kernel_adversarial(case, sppm_mode):
+    """The grid kernel against the dense twin on the adversarial cases of
+    tools/profile_ppm_density.py (photons at the largest float32 distance
+    that passes, on cell boundaries, in one cell, outside the grid, at inf
+    and NaN; radii varying 100x, one beyond a cell; no photons): counts
+    equal, phi allclose, and two calls equal to the bit; the pairs tested
+    are those of `density_binned_plain`."""
+    from misaki_tpu_torch.render import ppm
+
+    pd = profile_ppm_density
+    data = pd.mixed() if case == "mixed" else pd.adversarial(case)
+    args = pd.to_args(*data, sppm_mode, "cuda")
+    grid = pd.adversarial_grid()
+    ph, vps = ppm.pack_inputs(*args[:-1])
+    stats, plain_stats = {}, {}
+    lib = ppm.build()
+    res = pd.check(lambda: ppm.density_launch(lib, ph, vps, sppm_mode, grid, stats=stats,
+                                              pair_tests=True),
+                   ppm.density_plain(*args), calls=2)
+    assert res["ok"], res
+    ppm.density_binned_plain(*args, grid, stats=plain_stats)
+    assert int(stats["pair_tests"].item()) == plain_stats["pair_tests"]
+
+
+def test_density_levers_match_twin():
+    """Every lever of tools/ppm_density_levers.cu (lanes 1-32, pixel or cell
+    order) and the first, dense kernel on the adversarial mix: counts equal,
+    phi allclose, two calls equal to the bit."""
+    from misaki_tpu_torch.render import ppm
+
+    pd = profile_ppm_density
+    args = pd.to_args(*pd.mixed(), False, "cuda")
+    ph, vps = ppm.pack_inputs(*args[:-1])
+    want = ppm.density_plain(*args)
+    fns = pd.variants(ppm.build(), pd.load_levers(), ph, vps, False, pd.adversarial_grid(), args)
+    for label, fn in fns.items():
+        res = pd.check(fn, want, calls=2)
+        assert res["ok"], (label, res)
 
 
 @pytest.mark.parametrize("integrator", ["sppm", "photonmapper"])
 def test_ppm_on_the_card(integrator):
     """A small cbox photon-mapping render on the card: per iteration D
     camera and D photon closest-hit casts, D shadow casts in sppm, D - 1
-    density launches in sppm and D in the photonmapper; the image agrees
-    with the CPU's (means within 0.5%, relative L1 < 2%)."""
+    density launches in sppm and D in the photonmapper, each 11 CUDA
+    kernels; the image agrees with the CPU's (means within 0.5%, relative
+    L1 < 2%)."""
     from misaki_tpu_torch.render import ppm
 
     scene = load_and_compile(str(SCENES / "cbox" / f"{integrator}.xml"), width=32, height=24,
                              device="cpu").replace(ppm_photons=4096, ppm_iterations=2)
     D, sppm = ppm.depth_budget(scene, 16), integrator == "sppm"
     cl.closest_launches = cl.anyhit_launches = 0
-    ppm.density_launches = 0
+    ppm.density_launches = ppm.density_cuda_launches = 0
     a = driver.render(scene.to("cuda"), seed=3)["rgb"].cpu().numpy()
     assert (cl.closest_launches, cl.anyhit_launches, ppm.density_launches) == (
         2 * 2 * D, 2 * D if sppm else 0, 2 * (D - 1 if sppm else D))
+    # the frame's grid has 81^3 cells: three sort passes, 11 CUDA kernels
+    assert ppm.density_cuda_launches == 11 * ppm.density_launches
     b = driver.render(scene, seed=3)["rgb"].cpu().numpy()
     assert np.isfinite(a).all()
     assert abs(a.mean() - b.mean()) <= 5e-3 * b.mean()

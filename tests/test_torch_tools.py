@@ -36,6 +36,23 @@ def test_library_named_by_source_hash(tmp_path):
     assert len({cuda_build.library_path(s).name for s in srcs}) == 3
 
 
+def test_library_hash_covers_local_includes(tmp_path):
+    """A source that includes another by a quoted path is rebuilt when the
+    included file changes (the density levers include csrc/ppm_density.cu);
+    a system include is not read."""
+    (tmp_path / "inc").mkdir()
+    inner = tmp_path / "inc" / "inner.cuh"
+    inner.write_text("constexpr int k = 1;\n")
+    src = tmp_path / "outer.cu"
+    src.write_text('#include <cuda_runtime.h>\n#include "inc/inner.cuh"\nint f() { return k; }\n')
+    first = cuda_build.library_path(src)
+    inner.write_text("constexpr int k = 2;\n")
+    assert cuda_build.library_path(src) != first
+    from misaki_tpu_torch.tools import profile_ppm_density as pd
+    assert cuda_build.CSRC.joinpath("ppm_density.cu").read_bytes() in \
+        cuda_build._source_bytes(pd.LEVERS_SRC)
+
+
 def test_build_failure_names_the_source(tmp_path, monkeypatch):
     monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path / "build")
     monkeypatch.setattr(cuda_build, "_nvcc", lambda: shutil.which("false"))
