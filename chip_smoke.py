@@ -331,26 +331,16 @@ def compare_fetch(envlit):
 
 
 def reset_counts():
-    from misaki_tpu_torch.accel import cluster as cl
-    from misaki_tpu_torch.render import ppm
-    from misaki_tpu_torch.render import texel_fetch as tf
+    from misaki_tpu_torch.utils import tracing
 
-    cl.closest_launches = 0
-    cl.anyhit_launches = 0
-    tf.fetch_launches = 0
-    tf.fetch_bwd_launches = 0
-    ppm.density_launches = 0
-    ppm.density_cuda_launches = 0
+    tracing.reset_launches()
 
 
 def read_counts():
-    from misaki_tpu_torch.accel import cluster as cl
-    from misaki_tpu_torch.render import ppm
-    from misaki_tpu_torch.render import texel_fetch as tf
+    from misaki_tpu_torch.utils import tracing
 
-    return {"closest": cl.closest_launches, "anyhit": cl.anyhit_launches,
-            "fetch": tf.fetch_launches, "fetch_bwd": tf.fetch_bwd_launches,
-            "density": ppm.density_launches}
+    return {k: tracing.launches[k] for k in ("closest", "anyhit", "fetch", "fetch_bwd",
+                                             "density")}
 
 
 def timed_frames(scene, label, want_per_chunk, n_frames=N_FRAMES, warmup=None,
@@ -1276,6 +1266,7 @@ def ppm_frames(scene, label, n_frames=N_FRAMES, warmup=None):
 
     from misaki_tpu_torch.render import ppm
     from misaki_tpu_torch.render.driver import render
+    from misaki_tpu_torch.utils import tracing
     from misaki_tpu_torch.tools.bench import quiet
 
     render(scene if warmup is None else warmup, seed=0, depth_cap=BENCH_DEPTH, progress=quiet)
@@ -1298,7 +1289,7 @@ def ppm_frames(scene, label, n_frames=N_FRAMES, warmup=None):
     if launches != want:
         fail(f"phase {label}: kernel launch counts {launches} != expected {want}")
     # the CUDA kernels of those estimates, for the kernels line
-    launches["density_cuda"] = ppm.density_cuda_launches
+    launches["density_cuda"] = tracing.launches["density_cuda"]
     return out, dt, launches
 
 
@@ -2201,8 +2192,8 @@ def main():
                           "block",
          "design": "redesigned: photons binned by a stable radix sort into a grid, each "
                    "visible point tests the cells its radius reaches (first design: dense)",
-         # launches: estimates (ppm.density_launches); cuda_launches: the CUDA
-         # kernels those estimates enqueued (ppm.density_cuda_launches)
+         # launches: estimates (tracing.launches["density"]); cuda_launches:
+         # the CUDA kernels those estimates enqueued ("density_cuda")
          "launches": launches("density"),
          "launches_per_frame": per_frame("density"),
          "cuda_launches": launches("density_cuda"),

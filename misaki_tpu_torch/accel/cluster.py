@@ -40,7 +40,7 @@ import numpy as np
 import torch
 
 from misaki_tpu_torch.scene.types import ClusterAccel
-from misaki_tpu_torch.utils import cuda_build
+from misaki_tpu_torch.utils import cuda_build, tracing
 
 CLUSTER_FACES = 128   # faces per cluster (B)
 LEAF_FACES = 4        # faces per BVH2 leaf (at most 7: the leaf ref's count bits)
@@ -49,11 +49,6 @@ PAD = 2.0 ** -14      # box growth per unit of origin and scene reach; passed to
 R_TILE = 256          # rays per tile of the plain walk; packed rays are a multiple
 MAX_VISITS = 128      # visit-list cap per tile; overflow -> full scan
 _BIG = 3.0e38
-
-# Launch counts of the CUDA kernels. Each wrapper adds one where it
-# launches its kernel, and nowhere else.
-closest_launches = 0
-anyhit_launches = 0
 
 SRC = cuda_build.CSRC / "cluster.cu"
 
@@ -452,7 +447,7 @@ def build():
     and load it. Returns the ctypes library."""
     p, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     return cuda_build.load_library(SRC, {
-        "closest_hit_launch": ([p, i64, p, p, p, i32, i32, p, p, p, f32, i32, p], i32),
+        "closest_hit_launch": ([p, i64, p, p, p, i32, i32, p, p, p, p, f32, i32, p], i32),
         "any_hit_launch": ([p, i64, p, p, p, p, f32, i32, p], i32),
     })
 
@@ -503,10 +498,13 @@ def closest_hit(rays, acc, counts=None):
     """Closest hit of packed rays (8, Lp) over the accel. CPU tensors take
     the plain twin; CUDA tensors launch the kernel. `counts`, an optional
     int32 (2, Lp) CUDA tensor, receives each ray's nodes visited and faces
-    tested. Returns (out (4, Lp), fd (T, Lp))."""
-    global closest_launches
+    tested. While tracing is on, the kernel (or on the CPU, torch ops) adds
+    the rays with maxt >= mint to `cast.closest.live`. Returns (out (4, Lp),
+    fd (T, Lp))."""
     _check_inputs(rays, acc, counts)
     if rays.device.type == "cpu":
+        if tracing.enabled():
+            tracing.add(tracing.CAST_LIVE, (rays[7] >= rays[6]).sum())
         return closest_hit_plain(rays, acc)
     rays_p, Lp, nodes_p, leaf_p, counts_p, pad, stack, stream = _launch_args(rays, acc, counts)
     lib = build()
@@ -515,8 +513,9 @@ def closest_hit(rays, acc, counts=None):
     fd = torch.empty((T, Lp), dtype=torch.float32, device=rays.device)
     cuda_build.check_launch(lib.closest_hit_launch(
         rays_p, Lp, nodes_p, leaf_p, acc.tab.data_ptr(), T, B, out.data_ptr(), fd.data_ptr(),
-        counts_p, pad, stack, stream), "closest-hit kernel")
-    closest_launches += 1
+        counts_p, tracing.device_counter(rays.device, tracing.CAST_LIVE), pad, stack, stream),
+        "closest-hit kernel")
+    tracing.launches["closest"] += 1
     return out, fd
 
 
@@ -524,7 +523,6 @@ def any_hit(rays, acc, counts=None):
     """Occlusion of packed rays (any hit in [mint, maxt]); (Lp,) float32,
     1 = occluded. CPU tensors take the plain twin; CUDA tensors launch the
     kernel. `counts` as for `closest_hit`."""
-    global anyhit_launches
     _check_inputs(rays, acc, counts)
     if rays.device.type == "cpu":
         return any_hit_plain(rays, acc)
@@ -534,7 +532,7 @@ def any_hit(rays, acc, counts=None):
     cuda_build.check_launch(lib.any_hit_launch(
         rays_p, Lp, nodes_p, leaf_p, out.data_ptr(), counts_p, pad, stack, stream),
         "any-hit kernel")
-    anyhit_launches += 1
+    tracing.launches["anyhit"] += 1
     return out
 
 
@@ -547,6 +545,7 @@ def intersect_clusters(acc, o, d, mint, maxt):
     Returns {"t", "prim", "u", "v", "fd"} with t = inf / prim = -1 / fd = 0
     on a miss; "fd" is the winner's face-table row, (T, L)."""
     L = o[0].shape[0]
+    tracing.add(tracing.CAST_RAYS, L)
     out, fd = closest_hit(pack_rays(o, d, mint, maxt), acc)
     prim = out[3, :L].to(torch.int32)
     return {

@@ -12,6 +12,7 @@ twins' arithmetic stays out of the autograd graph too.
 """
 
 from misaki_tpu_torch.accel import cluster
+from misaki_tpu_torch.utils import tracing
 
 
 def _detached(o, d, mint, maxt):
@@ -27,11 +28,13 @@ def intersect(scene, o, d, mint, maxt, coherent=True, fd_rows=None):
     `coherent` and `fd_rows` are the JAX package's relayout hints; the
     port's kernels walk each ray on its own and return whole face rows, so
     both are accepted and ignored. Intersections carry no gradient."""
-    hit = cluster.intersect_clusters(scene.cluster, *_detached(o, d, mint, maxt))
-    return {k: v.detach() for k, v in hit.items()}
+    with tracing.span(tracing.CAST):
+        hit = cluster.intersect_clusters(scene.cluster, *_detached(o, d, mint, maxt))
+        return {k: v.detach() for k, v in hit.items()}
 
 
 def ray_test(scene, o, d, mint, maxt, coherent=False):
     """Shadow-ray occlusion (Scene::ray_test, scene.cpp:255-273); True =
     occluded."""
-    return cluster.ray_test_clusters(scene.cluster, *_detached(o, d, mint, maxt)).detach()
+    with tracing.span(tracing.CAST):
+        return cluster.ray_test_clusters(scene.cluster, *_detached(o, d, mint, maxt)).detach()

@@ -228,14 +228,23 @@ __device__ __forceinline__ Hit traverse(const Ray& r, const float4* __restrict__
   return h;
 }
 
+// live (nullable, the tracing counter cast.closest.live): adds the block's
+// rays with maxt >= mint, one atomic add a block. It counts after the ray's
+// loads, which the walk waits for anyway, so counting adds no memory latency
+// in front of the block.
 __global__ void __launch_bounds__(kBlock, 8)
 closest_hit_kernel(const float* __restrict__ rays, long long Lp,
                    const float4* __restrict__ nodes, const float4* __restrict__ leaf_tri,
                    const float* __restrict__ tab, int T, int B, float* __restrict__ out,
-                   float* __restrict__ fd, int* __restrict__ counts, float pad_scale) {
+                   float* __restrict__ fd, int* __restrict__ counts,
+                   unsigned long long* __restrict__ live, float pad_scale) {
   const long long lane = (long long)blockIdx.x * kBlock + threadIdx.x;
+  const Ray r = load_ray(rays, Lp, lane < Lp ? lane : Lp - 1, __ldg(nodes + 3).z, pad_scale);
+  if (live != nullptr) {  // the same for every thread of the block
+    const int n = __syncthreads_count(lane < Lp && r.maxt >= r.mint);
+    if (threadIdx.x == 0 && n > 0) atomicAdd(live, (unsigned long long)n);
+  }
   if (lane >= Lp) return;
-  const Ray r = load_ray(rays, Lp, lane, __ldg(nodes + 3).z, pad_scale);
   int n_nodes = 0, n_faces = 0;
   const Hit h = traverse<false>(r, nodes, leaf_tri, n_nodes, n_faces);
 
@@ -287,14 +296,14 @@ unsigned grid_of(long long Lp) { return (unsigned)((Lp + kBlock - 1) / kBlock); 
 
 extern "C" int closest_hit_launch(const float* rays, long long Lp, const float* nodes,
                                   const float* leaf_tri, const float* tab, int T, int B,
-                                  float* out, float* fd, int* counts, float pad_scale,
-                                  int stack_depth, void* stream) {
+                                  float* out, float* fd, int* counts, unsigned long long* live,
+                                  float pad_scale, int stack_depth, void* stream) {
   static const cudaError_t carveout = prefer_l1(closest_hit_kernel);
   if (carveout != cudaSuccess) return (int)carveout;
   if (Lp <= 0 || stack_depth > kStack) return (int)cudaErrorInvalidValue;
   closest_hit_kernel<<<grid_of(Lp), kBlock, 0, (cudaStream_t)stream>>>(
       rays, Lp, reinterpret_cast<const float4*>(nodes),
-      reinterpret_cast<const float4*>(leaf_tri), tab, T, B, out, fd, counts, pad_scale);
+      reinterpret_cast<const float4*>(leaf_tri), tab, T, B, out, fd, counts, live, pad_scale);
   return (int)cudaGetLastError();
 }
 

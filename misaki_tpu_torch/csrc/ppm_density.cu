@@ -138,20 +138,28 @@ __device__ __forceinline__ int cell_of(float x, float lo, float inv_h, int n) {
 }
 
 // 1. Keys of the photons, each photon that may contribute staged as three
-// float4 at its index, and the block's counts of the first digit.
+// float4 at its index, and the block's counts of the first digit. kTally
+// (tracing): adds the block's alive photons to *alive, one atomic add a
+// block; without it the kernel does no counting at all.
+template <bool kTally>
 __global__ void __launch_bounds__(kSortThreads)
     density_keys_kernel(const float* __restrict__ ph, long long P, int sppm, Grid g,
                         unsigned sentinel, unsigned* __restrict__ keys, int* __restrict__ vals,
-                        float4* __restrict__ staged, int* __restrict__ hist, int blocks) {
+                        float4* __restrict__ staged, int* __restrict__ hist, int blocks,
+                        unsigned long long* __restrict__ alive) {
   __shared__ int s_count[kDigits];
+  __shared__ int s_alive;
   s_count[threadIdx.x] = 0;
+  if (kTally && threadIdx.x == 0) s_alive = 0;
   __syncthreads();
+  [[maybe_unused]] int n_alive = 0;
   for (int r = 0; r < kItems; ++r) {
     const long long j = (long long)blockIdx.x * kTile + r * kSortThreads + threadIdx.x;
     if (j >= P) break;
     const float wx = ph[3 * P + j], wy = ph[4 * P + j], wz = ph[5 * P + j];
     const float nx = ph[6 * P + j], ny = ph[7 * P + j], nz = ph[8 * P + j];
     const float wiz = wx * nx + wy * ny + wz * nz;
+    if constexpr (kTally) n_alive += ph[13 * P + j] != 0.0f;
     unsigned key = sentinel;
     if (ph[13 * P + j] != 0.0f && wiz > 0.0f) {
       const float px = ph[j], py = ph[P + j], pz = ph[2 * P + j];
@@ -168,8 +176,15 @@ __global__ void __launch_bounds__(kSortThreads)
     vals[j] = (int)j;
     atomicAdd(&s_count[key & (kDigits - 1)], 1);
   }
+  if constexpr (kTally) {
+    n_alive = __reduce_add_sync(0xffffffffu, n_alive);
+    if ((threadIdx.x & 31) == 0) atomicAdd(&s_alive, n_alive);
+  }
   __syncthreads();
   hist[blockIdx.x * kDigits + threadIdx.x] = s_count[threadIdx.x];
+  if constexpr (kTally) {
+    if (threadIdx.x == 0 && s_alive > 0) atomicAdd(alive, (unsigned long long)s_alive);
+  }
 }
 
 // 2a. The block's counts of the digit at `shift` (passes after the first).
@@ -287,10 +302,13 @@ __global__ void __launch_bounds__(kSortThreads)
   }
 }
 
-// 3. offsets[c]: the first sorted position whose key is >= c.
+// 3. offsets[c]: the first sorted position whose key is >= c. The keys
+// below the sentinel n_cells are the photons that may contribute, so
+// offsets[n_cells] counts them: contributing (nullable, tracing) gets it.
 __global__ void __launch_bounds__(kBoundsThreads)
     density_bounds_kernel(const unsigned* __restrict__ keys, long long n, int n_cells,
-                          int* __restrict__ offsets) {
+                          int* __restrict__ offsets,
+                          unsigned long long* __restrict__ contributing) {
   const long long c = (long long)blockIdx.x * kBoundsThreads + threadIdx.x;
   if (c > n_cells) return;
   long long lo = 0, hi = n;
@@ -303,18 +321,26 @@ __global__ void __launch_bounds__(kBoundsThreads)
     }
   }
   offsets[c] = (int)lo;
+  if (contributing != nullptr && c == n_cells) atomicAdd(contributing, (unsigned long long)lo);
 }
 
-// 4. The gather: G lanes a visible point.
+// 4. The gather: G lanes a visible point. live (nullable, tracing): adds
+// the warp's live visible points, each once, one atomic add a warp (no
+// barrier: the warps of a block run apart).
 template <int G>
 __global__ void __launch_bounds__(kGatherThreads)
     density_gather_kernel(const float4* __restrict__ packed, const int* __restrict__ offsets,
                           Grid g, const float* __restrict__ vp, long long L, int sppm,
                           float* __restrict__ phi, float* __restrict__ count,
-                          unsigned long long* __restrict__ tests) {
+                          unsigned long long* __restrict__ tests,
+                          unsigned long long* __restrict__ live) {
   static_assert(G >= 1 && G <= 32 && (G & (G - 1)) == 0, "G divides a warp");
   const long long i = ((long long)blockIdx.x * kGatherThreads + threadIdx.x) / G;
   const int sub = threadIdx.x & (G - 1);
+  if (live != nullptr) {  // the same for every thread of the block
+    const unsigned m = __ballot_sync(0xffffffffu, sub == 0 && i < L && vp[10 * L + i] != 0.0f);
+    if ((threadIdx.x & 31) == 0 && m != 0u) atomicAdd(live, (unsigned long long)__popc(m));
+  }
   if (i >= L) return;
   if (vp[10 * L + i] == 0.0f) {
     if (sub == 0) {
@@ -449,8 +475,9 @@ T* at(void* work, size_t offset) {
 
 // The passes after the keys: per pass the block counts (but the first's),
 // their scan and the stable scatter; the last pass packs the photons. Then
-// the offsets of every cell.
-cudaError_t enqueue_sort(const Plan& p, void* work, cudaStream_t st, int* launches) {
+// the offsets of every cell; `contributing` as density_bounds_kernel's.
+cudaError_t enqueue_sort(const Plan& p, void* work, cudaStream_t st, int* launches,
+                         unsigned long long* contributing = nullptr) {
   const unsigned sentinel = (unsigned)p.n_cells;
   int* hist = at<int>(work, p.hist);
   int src = 0;
@@ -481,32 +508,38 @@ cudaError_t enqueue_sort(const Plan& p, void* work, cudaStream_t st, int* launch
   const long long cells = (long long)p.n_cells + 1;
   density_bounds_kernel<<<(unsigned)((cells + kBoundsThreads - 1) / kBoundsThreads),
                           kBoundsThreads, 0, st>>>(at<unsigned>(work, p.keys[src]), p.P,
-                                                   p.n_cells, at<int>(work, p.offsets));
+                                                   p.n_cells, at<int>(work, p.offsets),
+                                                   contributing);
   DENSITY_LAUNCHED();
   return cudaSuccess;
 }
 
-// Keys, sort, offsets: the photons binned into the workspace.
+// Keys, sort, offsets: the photons binned into the workspace. tally
+// (nullable, tracing): the photons alive and those that may contribute are
+// added to tally[0] and tally[1].
 cudaError_t enqueue_binning(const Plan& p, const float* ph, int sppm, const Grid& g, void* work,
-                            cudaStream_t st, int* launches) {
+                            cudaStream_t st, int* launches, unsigned long long* tally = nullptr) {
   if (p.P > 0) {
-    density_keys_kernel<<<p.blocks, kSortThreads, 0, st>>>(
+    const auto keys_kernel = tally ? density_keys_kernel<true> : density_keys_kernel<false>;
+    keys_kernel<<<p.blocks, kSortThreads, 0, st>>>(
         ph, p.P, sppm, g, (unsigned)p.n_cells, at<unsigned>(work, p.keys[0]),
-        at<int>(work, p.vals[0]), at<float4>(work, p.staged), at<int>(work, p.hist), p.blocks);
+        at<int>(work, p.vals[0]), at<float4>(work, p.staged), at<int>(work, p.hist), p.blocks,
+        tally);
     DENSITY_LAUNCHED();
   }
-  return enqueue_sort(p, work, st, launches);
+  return enqueue_sort(p, work, st, launches, tally ? tally + 1 : nullptr);
 }
 
 template <int G>
 cudaError_t enqueue_gather(const Plan& p, const Grid& g, const float* vp, long long L, int sppm,
                            void* work, float* phi, float* count, unsigned long long* tests,
-                           cudaStream_t st, int* launches) {
+                           cudaStream_t st, int* launches, unsigned long long* live = nullptr) {
   const long long threads = L * G;
   const long long blocks = (threads + kGatherThreads - 1) / kGatherThreads;
   if (blocks > 0x7FFFFFFFLL) return cudaErrorInvalidValue;
   density_gather_kernel<G><<<(unsigned)blocks, kGatherThreads, 0, st>>>(
-      at<float4>(work, p.packed), at<int>(work, p.offsets), g, vp, L, sppm, phi, count, tests);
+      at<float4>(work, p.packed), at<int>(work, p.offsets), g, vp, L, sppm, phi, count, tests,
+      live);
   DENSITY_LAUNCHED();
   return cudaSuccess;
 }
@@ -529,19 +562,24 @@ extern "C" long long density_workspace_bytes(long long P, long long n_cells) {
 }
 
 // One estimate: `launches` receives the number of kernels enqueued, `tests`
-// (may be null) the number of (visible point, photon) pairs tested.
+// (may be null) the number of (visible point, photon) pairs tested, `tally`
+// (may be null: the tracing counters density.alive, density.contributing and
+// density.live, in that order) the photons alive, those alive with wi . n >
+// 0 and the live visible points, counted in the kernels that read them.
 extern "C" int density_launch(const float* ph, long long P, const float* vp, long long L, int sppm,
                               float lo_x, float lo_y, float lo_z, float inv_h, int nx, int ny,
                               int nz, void* work, long long work_bytes, float* phi, float* count,
-                              unsigned long long* tests, int* launches, void* stream) {
+                              unsigned long long* tests, unsigned long long* tally, int* launches,
+                              void* stream) {
   Grid g;
   *launches = 0;
   if (!make_grid(P, L, lo_x, lo_y, lo_z, inv_h, nx, ny, nz, &g)) return (int)cudaErrorInvalidValue;
   const Plan p = make_plan(P, nx * ny * nz);
   if (work_bytes < (long long)p.bytes) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err = enqueue_binning(p, ph, sppm, g, work, st, launches);
+  cudaError_t err = enqueue_binning(p, ph, sppm, g, work, st, launches, tally);
   if (err != cudaSuccess) return (int)err;
-  err = enqueue_gather<kLanes>(p, g, vp, L, sppm, work, phi, count, tests, st, launches);
+  err = enqueue_gather<kLanes>(p, g, vp, L, sppm, work, phi, count, tests, st, launches,
+                               tally ? tally + 2 : nullptr);
   return (int)err;
 }

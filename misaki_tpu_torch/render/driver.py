@@ -19,6 +19,7 @@ from misaki_tpu_torch.render import aov
 from misaki_tpu_torch.render import camera as cam
 from misaki_tpu_torch.render import film as film_mod
 from misaki_tpu_torch.render import integrator as integ
+from misaki_tpu_torch.utils import tracing
 from misaki_tpu_torch.utils.logging import get_logger
 
 DEFAULT_CHUNK = 1 << 20
@@ -61,27 +62,28 @@ def _render_chunk(scene, film_flat, lane0, n_total, seed, chunk, depth_cap):
     """Render `chunk` lanes (spp-aligned) starting at `lane0` into the film:
     XYZ, or for `aov` its AOV columns and then XYZ (render/aov.py), then
     alpha and the filter weight."""
-    lane = lane0 + torch.arange(chunk, dtype=torch.int64, device=film_flat.device)
-    in_range = lane < n_total
-    ray, pos, state = primary_rays(scene, lane, seed)
-    if scene.integrator == "aov":
-        cols, _ = aov.chunk_columns(scene, ray, state, depth_cap)
-    elif scene.integrator == "debug":
-        rgb, _ = integ.sample_debug(scene, ray, state)
-        cols = spec.srgb_to_xyz(rgb)
-    else:
-        L_spec, _ = integ.radiance(scene, ray, state, scene.integrator, depth_cap)
-        cols = spec.spectrum_to_xyz(L_spec * ray["wav_weight"], ray["wavelengths"])
+    with tracing.span(tracing.CHUNK):
+        lane = lane0 + torch.arange(chunk, dtype=torch.int64, device=film_flat.device)
+        in_range = lane < n_total
+        ray, pos, state = primary_rays(scene, lane, seed)
+        if scene.integrator == "aov":
+            cols, _ = aov.chunk_columns(scene, ray, state, depth_cap)
+        elif scene.integrator == "debug":
+            rgb, _ = integ.sample_debug(scene, ray, state)
+            cols = spec.srgb_to_xyz(rgb)
+        else:
+            L_spec, _ = integ.radiance(scene, ray, state, scene.integrator, depth_cap)
+            cols = spec.spectrum_to_xyz(L_spec * ray["wav_weight"], ray["wavelengths"])
 
-    ones = torch.ones(chunk, device=film_flat.device)
-    # alpha=1, filter weight=1 (integrator.cpp:119-123)
-    values = tuple(cols) + (ones, ones)
-    values = tuple(torch.where(in_range & torch.isfinite(c), c, 0.0) for c in values)
-    return film_mod.splat_aligned(
-        film_flat, lane0 // scene.spp, pos, values,
-        scene.film_width, scene.film_height, scene.spp,
-        scene.filter_type, scene.filter_stddev,
-    )
+        ones = torch.ones(chunk, device=film_flat.device)
+        # alpha=1, filter weight=1 (integrator.cpp:119-123)
+        values = tuple(cols) + (ones, ones)
+        values = tuple(torch.where(in_range & torch.isfinite(c), c, 0.0) for c in values)
+        return film_mod.splat_aligned(
+            film_flat, lane0 // scene.spp, pos, values,
+            scene.film_width, scene.film_height, scene.spp,
+            scene.filter_type, scene.filter_stddev,
+        )
 
 
 def render_lanes(scene, film_flat, lane0, lane1, seed, chunk, depth_cap):
@@ -171,39 +173,40 @@ def render(scene, seed=0, chunk_size=DEFAULT_CHUNK,
         return render_ppm(scene, seed=seed, depth_cap=depth_cap,
                           checkpoint_path=checkpoint_path,
                           checkpoint_every=checkpoint_every, progress=progress)
-    W, H, spp = scene.film_width, scene.film_height, scene.spp
-    n_total = W * H * spp
-    chunk = pick_chunk(chunk_size, spp, n_total)
-    n_chunks = -(-n_total // chunk)
-    n_channels = aov.n_channels(scene) if scene.integrator == "aov" else 5
-    fingerprint = _scene_fingerprint(scene, seed, depth_cap, chunk)
-    start, film_flat = 0, None
-    if checkpoint_path is not None:
-        resumed = load_checkpoint(checkpoint_path, fingerprint, scene.device)
-        if resumed is not None:
-            film_flat, start = resumed
-            get_logger().info("resuming from %s at chunk %d/%d", checkpoint_path, start,
-                              n_chunks)
-    if progress is None and n_chunks > 1:
-        progress = log_progress
-    with torch.inference_mode():
-        if film_flat is None:
-            film_flat = film_mod.new_film_flat(H, W, n_channels, scene.filter_type,
-                                               scene.filter_stddev, device=scene.device)
-        for c in range(start, n_chunks):
-            _render_chunk(scene, film_flat, c * chunk, n_total, seed, chunk, depth_cap)
-            if progress is not None:
-                progress(c + 1, n_chunks)
-            if (checkpoint_path is not None and checkpoint_every > 0
-                    and (c + 1) % checkpoint_every == 0 and c + 1 < n_chunks):
-                save_checkpoint(checkpoint_path, film_flat, c + 1, fingerprint)
-        film = film_mod.film_from_flat(film_flat, H, W, scene.filter_type,
-                                       scene.filter_stddev)
-        if scene.integrator == "aov":
-            out = {"film": None, **aov.develop(scene, film)}
-        else:
-            rgb, alpha = film_mod.develop(film)
-            out = {"film": film, "rgb": rgb, "alpha": alpha}
-    if checkpoint_path is not None and os.path.exists(checkpoint_path):
-        os.remove(checkpoint_path)  # completed: the snapshot is stale
-    return out
+    with tracing.span(tracing.FRAME):
+        W, H, spp = scene.film_width, scene.film_height, scene.spp
+        n_total = W * H * spp
+        chunk = pick_chunk(chunk_size, spp, n_total)
+        n_chunks = -(-n_total // chunk)
+        n_channels = aov.n_channels(scene) if scene.integrator == "aov" else 5
+        fingerprint = _scene_fingerprint(scene, seed, depth_cap, chunk)
+        start, film_flat = 0, None
+        if checkpoint_path is not None:
+            resumed = load_checkpoint(checkpoint_path, fingerprint, scene.device)
+            if resumed is not None:
+                film_flat, start = resumed
+                get_logger().info("resuming from %s at chunk %d/%d", checkpoint_path, start,
+                                  n_chunks)
+        if progress is None and n_chunks > 1:
+            progress = log_progress
+        with torch.inference_mode():
+            if film_flat is None:
+                film_flat = film_mod.new_film_flat(H, W, n_channels, scene.filter_type,
+                                                   scene.filter_stddev, device=scene.device)
+            for c in range(start, n_chunks):
+                _render_chunk(scene, film_flat, c * chunk, n_total, seed, chunk, depth_cap)
+                if progress is not None:
+                    progress(c + 1, n_chunks)
+                if (checkpoint_path is not None and checkpoint_every > 0
+                        and (c + 1) % checkpoint_every == 0 and c + 1 < n_chunks):
+                    save_checkpoint(checkpoint_path, film_flat, c + 1, fingerprint)
+            film = film_mod.film_from_flat(film_flat, H, W, scene.filter_type,
+                                           scene.filter_stddev)
+            if scene.integrator == "aov":
+                out = {"film": None, **aov.develop(scene, film)}
+            else:
+                rgb, alpha = film_mod.develop(film)
+                out = {"film": film, "rgb": rgb, "alpha": alpha}
+        if checkpoint_path is not None and os.path.exists(checkpoint_path):
+            os.remove(checkpoint_path)  # completed: the snapshot is stale
+        return out

@@ -35,6 +35,7 @@ from misaki_tpu_torch.scene.types import (
     MC_OPACITY,
     SPEC_SLOT_COLS,
 )
+from misaki_tpu_torch.utils import tracing
 
 DEFAULT_MAX_DEPTH_CAP = 16
 
@@ -86,88 +87,89 @@ def sample_path(scene, ray, rng_state, depth_cap=DEFAULT_MAX_DEPTH_CAP):
 
     active = si["valid"]
     for i in range(n_bounce_iters(scene, depth_cap)):
-        depth = i + 1  # the reference's loop variable
+        with tracing.span(tracing.BOUNCE):
+            depth = i + 1  # the reference's loop variable
 
-        # -------- draws (unconditional, fixed order) --------
-        u_nee, rng_state = rng.next_2d(rng_state)
-        u_bsdf1, rng_state = rng.next_float32(rng_state)
-        u_bsdf2, rng_state = rng.next_2d(rng_state)
-        u_rr, rng_state = rng.next_float32(rng_state)
+            # -------- draws (unconditional, fixed order) --------
+            u_nee, rng_state = rng.next_2d(rng_state)
+            u_bsdf1, rng_state = rng.next_float32(rng_state)
+            u_bsdf2, rng_state = rng.next_2d(rng_state)
+            u_rr, rng_state = rng.next_float32(rng_state)
 
-        p = bsdf.material_params(scene, si["bsdf"], si["uv"], wavelengths,
-                                 duv=(si["duv_dx"], si["duv_dy"]))
+            p = bsdf.material_params(scene, si["bsdf"], si["uv"], wavelengths,
+                                     duv=(si["duv_dx"], si["duv_dy"]))
 
-        # -------- NEE (path.cpp:53-67), only from Smooth BSDFs --------
-        ds = emitter.sample_emitter_direct(scene, si["p"], wavelengths, u_nee, rad)
-        nee_possible = active & p["smooth"] & (ds["pdf"] > 0.0)
-        # shadow ray (scene.cpp:90-97); masked lanes get degenerate rays
-        sh_mint = m.RayEpsilon * (1.0 + vec.max_abs(si["p"]))
-        sh_maxt = ds["dist"] * (1.0 - m.ShadowEpsilon)
-        occluded = traverse.ray_test(
-            scene, si["p"], ds["d"],
-            torch.where(nee_possible, sh_mint, 0.0),
-            torch.where(nee_possible, sh_maxt, -1.0),
-        )
-        wo_nee = frame.to_local(si["sh"], ds["d"])
-        f_nee = bsdf.eval_bsdf(p, si["wi"], wo_nee)
-        pdf_nee_bsdf = bsdf.pdf_bsdf(p, si["wi"], wo_nee)
-        # detached sampling: MIS weights are pdf ratios, their gradient is
-        # stopped (misaki_tpu/render/integrator.py:127-129)
-        mis_w = torch.where(ds["delta"], 1.0, m.mis_power2(ds["pdf"], pdf_nee_bsdf)).detach()
-        contrib = throughput * ds["spec"] * f_nee * mis_w[None, :]
-        take = nee_possible & ~occluded
-        result = result + torch.where(take[None, :], contrib, 0.0)
+            # -------- NEE (path.cpp:53-67), only from Smooth BSDFs --------
+            ds = emitter.sample_emitter_direct(scene, si["p"], wavelengths, u_nee, rad)
+            nee_possible = active & p["smooth"] & (ds["pdf"] > 0.0)
+            # shadow ray (scene.cpp:90-97); masked lanes get degenerate rays
+            sh_mint = m.RayEpsilon * (1.0 + vec.max_abs(si["p"]))
+            sh_maxt = ds["dist"] * (1.0 - m.ShadowEpsilon)
+            occluded = traverse.ray_test(
+                scene, si["p"], ds["d"],
+                torch.where(nee_possible, sh_mint, 0.0),
+                torch.where(nee_possible, sh_maxt, -1.0),
+            )
+            wo_nee = frame.to_local(si["sh"], ds["d"])
+            f_nee = bsdf.eval_bsdf(p, si["wi"], wo_nee)
+            pdf_nee_bsdf = bsdf.pdf_bsdf(p, si["wi"], wo_nee)
+            # detached sampling: MIS weights are pdf ratios, their gradient is
+            # stopped (misaki_tpu/render/integrator.py:127-129)
+            mis_w = torch.where(ds["delta"], 1.0, m.mis_power2(ds["pdf"], pdf_nee_bsdf)).detach()
+            contrib = throughput * ds["spec"] * f_nee * mis_w[None, :]
+            take = nee_possible & ~occluded
+            result = result + torch.where(take[None, :], contrib, 0.0)
 
-        # -------- BSDF sampling (path.cpp:71-98) --------
-        bs = bsdf.sample_bsdf(p, si["wi"], u_bsdf1, u_bsdf2)
-        wo_world = frame.to_world(si["sh"], bs["wo"])
-        new_mint = inter.spawn_ray_mint(si["p"])
-        next_hit = traverse.intersect(
-            scene, si["p"], wo_world,
-            torch.where(active, new_mint, 0.0),
-            torch.where(active, torch.inf, -1.0),
-            coherent=False,
-        )
-        si_next = inter.compute_interaction(scene, next_hit, si["p"], wo_world, wavelengths)
+            # -------- BSDF sampling (path.cpp:71-98) --------
+            bs = bsdf.sample_bsdf(p, si["wi"], u_bsdf1, u_bsdf2)
+            wo_world = frame.to_world(si["sh"], bs["wo"])
+            new_mint = inter.spawn_ray_mint(si["p"])
+            next_hit = traverse.intersect(
+                scene, si["p"], wo_world,
+                torch.where(active, new_mint, 0.0),
+                torch.where(active, torch.inf, -1.0),
+                coherent=False,
+            )
+            si_next = inter.compute_interaction(scene, next_hit, si["p"], wo_world, wavelengths)
 
-        throughput = throughput * bs["weight"]
-        eta = eta * bs["eta"]
+            throughput = throughput * bs["weight"]
+            eta = eta * bs["eta"]
 
-        # -------- emitter-hit MIS (path.cpp:84-108) --------
-        hit_area = si_next["valid"] & (si_next["emitter"] >= 0)
-        em_val = emitter.eval_emitter(scene, si_next["emitter"], si_next["wi"],
-                                      si_next["uv"], wavelengths, rad)
-        em_pdf_area = emitter.pdf_emitter_direct(
-            scene, si_next["emitter"], wo_world, si_next["t"], si_next["ng"])
-        value = torch.where(hit_area[None, :], em_val, 0.0)
-        em_pdf = torch.where(hit_area, em_pdf_area, 0.0)
-        if scene.has_environment:
-            hit_env = ~si_next["valid"]
-            env_val = emitter.eval_environment(scene, wo_world, wavelengths, rad)
-            value = torch.where(hit_env[None, :], env_val, value)
-            env_ids = torch.full((L,), scene.environment_idx, dtype=torch.int32, device=dev)
-            env_pdf = emitter.pdf_emitter_direct(scene, env_ids, wo_world, si_next["t"],
-                                                 vec.neg(wo_world))
-            em_pdf = torch.where(hit_env, env_pdf, em_pdf)
-            hit_emitter = hit_area | hit_env
-        else:
-            hit_emitter = hit_area
-        em_pdf = torch.where(bs["delta"], 0.0, em_pdf)
-        mis_b = m.mis_power2(bs["pdf"], em_pdf).detach()
-        add = throughput * value * mis_b[None, :]
-        result = result + torch.where((active & hit_emitter)[None, :], add, 0.0)
+            # -------- emitter-hit MIS (path.cpp:84-108) --------
+            hit_area = si_next["valid"] & (si_next["emitter"] >= 0)
+            em_val = emitter.eval_emitter(scene, si_next["emitter"], si_next["wi"],
+                                          si_next["uv"], wavelengths, rad)
+            em_pdf_area = emitter.pdf_emitter_direct(
+                scene, si_next["emitter"], wo_world, si_next["t"], si_next["ng"])
+            value = torch.where(hit_area[None, :], em_val, 0.0)
+            em_pdf = torch.where(hit_area, em_pdf_area, 0.0)
+            if scene.has_environment:
+                hit_env = ~si_next["valid"]
+                env_val = emitter.eval_environment(scene, wo_world, wavelengths, rad)
+                value = torch.where(hit_env[None, :], env_val, value)
+                env_ids = torch.full((L,), scene.environment_idx, dtype=torch.int32, device=dev)
+                env_pdf = emitter.pdf_emitter_direct(scene, env_ids, wo_world, si_next["t"],
+                                                     vec.neg(wo_world))
+                em_pdf = torch.where(hit_env, env_pdf, em_pdf)
+                hit_emitter = hit_area | hit_env
+            else:
+                hit_emitter = hit_area
+            em_pdf = torch.where(bs["delta"], 0.0, em_pdf)
+            mis_b = m.mis_power2(bs["pdf"], em_pdf).detach()
+            add = throughput * value * mis_b[None, :]
+            result = result + torch.where((active & hit_emitter)[None, :], add, 0.0)
 
-        # -------- continuation --------
-        active = active & bs["valid"] & si_next["valid"]
+            # -------- continuation --------
+            active = active & bs["valid"] & si_next["valid"]
 
-        # -------- Russian roulette (path.cpp:116-122) --------
-        if depth + 1 >= scene.rr_depth:
-            q = torch.clamp(throughput.amax(dim=0) * eta * eta, max=0.95).detach()
-            active = active & ~(u_rr >= q)
-            throughput = torch.where(active[None, :],
-                                     throughput / torch.clamp(q, min=1e-8)[None, :],
-                                     throughput)
-        si = si_next
+            # -------- Russian roulette (path.cpp:116-122) --------
+            if depth + 1 >= scene.rr_depth:
+                q = torch.clamp(throughput.amax(dim=0) * eta * eta, max=0.95).detach()
+                active = active & ~(u_rr >= q)
+                throughput = torch.where(active[None, :],
+                                         throughput / torch.clamp(q, min=1e-8)[None, :],
+                                         throughput)
+            si = si_next
 
     return result, rng_state
 
@@ -235,58 +237,60 @@ def sample_direct(scene, ray, rng_state):
 
     # -------- emitter sampling (direct.cpp:97-113), from Smooth lobes --------
     for _ in range(n_lum):
-        u_nee, rng_state = rng.next_2d(rng_state)
-        ds = emitter.sample_emitter_direct(scene, si["p"], wavelengths, u_nee, rad)
-        possible = active & p["smooth"] & (ds["pdf"] > 0.0)
-        occluded = traverse.ray_test(
-            scene, si["p"], ds["d"],
-            torch.where(possible, sh_mint, 0.0),
-            torch.where(possible, ds["dist"] * (1.0 - m.ShadowEpsilon), -1.0),
-        )
-        wo_nee = frame.to_local(si["sh"], ds["d"])
-        f_nee = bsdf.eval_bsdf(p, si["wi"], wo_nee)
-        pdf_b = bsdf.pdf_bsdf(p, si["wi"], wo_nee)
-        mis = torch.where(ds["delta"], 1.0,
-                          m.mis_power2(ds["pdf"] * frac_lum, pdf_b * frac_bsdf)) * w_lum
-        take = possible & ~occluded
-        result = result + torch.where(take[None, :], ds["spec"] * f_nee * mis[None, :], 0.0)
+        with tracing.span(tracing.BOUNCE):
+            u_nee, rng_state = rng.next_2d(rng_state)
+            ds = emitter.sample_emitter_direct(scene, si["p"], wavelengths, u_nee, rad)
+            possible = active & p["smooth"] & (ds["pdf"] > 0.0)
+            occluded = traverse.ray_test(
+                scene, si["p"], ds["d"],
+                torch.where(possible, sh_mint, 0.0),
+                torch.where(possible, ds["dist"] * (1.0 - m.ShadowEpsilon), -1.0),
+            )
+            wo_nee = frame.to_local(si["sh"], ds["d"])
+            f_nee = bsdf.eval_bsdf(p, si["wi"], wo_nee)
+            pdf_b = bsdf.pdf_bsdf(p, si["wi"], wo_nee)
+            mis = torch.where(ds["delta"], 1.0,
+                              m.mis_power2(ds["pdf"] * frac_lum, pdf_b * frac_bsdf)) * w_lum
+            take = possible & ~occluded
+            result = result + torch.where(take[None, :], ds["spec"] * f_nee * mis[None, :], 0.0)
 
     # -------- BSDF sampling (direct.cpp:116-136) --------
     for _ in range(n_bsdf):
-        u1, rng_state = rng.next_float32(rng_state)
-        u2, rng_state = rng.next_2d(rng_state)
-        bs = bsdf.sample_bsdf(p, si["wi"], u1, u2)
-        wo_world = frame.to_world(si["sh"], bs["wo"])
-        go = active & bs["valid"]
-        hit2 = traverse.intersect(
-            scene, si["p"], wo_world,
-            torch.where(go, inter.spawn_ray_mint(si["p"]), 0.0),
-            torch.where(go, torch.inf, -1.0),
-            coherent=False,
-        )
-        si2 = inter.compute_interaction(scene, hit2, si["p"], wo_world, wavelengths)
-        hit_area = si2["valid"] & (si2["emitter"] >= 0)
-        em_val = emitter.eval_emitter(scene, si2["emitter"], si2["wi"], si2["uv"],
-                                      wavelengths, rad)
-        value = torch.where(hit_area[None, :], em_val, 0.0)
-        em_pdf_area = emitter.pdf_emitter_direct(scene, si2["emitter"], wo_world,
-                                                 si2["t"], si2["ng"])
-        em_pdf = torch.where(hit_area, em_pdf_area, 0.0)
-        if scene.has_environment:
-            hit_env = ~si2["valid"]
-            env_val = emitter.eval_environment(scene, wo_world, wavelengths, rad)
-            value = torch.where(hit_env[None, :], env_val, value)
-            env_ids = torch.full((L,), scene.environment_idx, dtype=torch.int32, device=dev)
-            env_pdf = emitter.pdf_emitter_direct(scene, env_ids, wo_world, si2["t"],
-                                                 vec.neg(wo_world))
-            em_pdf = torch.where(hit_env, env_pdf, em_pdf)
-            hit_em = hit_area | hit_env
-        else:
-            hit_em = hit_area
-        em_pdf = torch.where(bs["delta"], 0.0, em_pdf)
-        mis = m.mis_power2(bs["pdf"] * frac_bsdf, em_pdf * frac_lum) * w_bsdf
-        result = result + torch.where((go & hit_em)[None, :],
-                                      bs["weight"] * value * mis[None, :], 0.0)
+        with tracing.span(tracing.BOUNCE):
+            u1, rng_state = rng.next_float32(rng_state)
+            u2, rng_state = rng.next_2d(rng_state)
+            bs = bsdf.sample_bsdf(p, si["wi"], u1, u2)
+            wo_world = frame.to_world(si["sh"], bs["wo"])
+            go = active & bs["valid"]
+            hit2 = traverse.intersect(
+                scene, si["p"], wo_world,
+                torch.where(go, inter.spawn_ray_mint(si["p"]), 0.0),
+                torch.where(go, torch.inf, -1.0),
+                coherent=False,
+            )
+            si2 = inter.compute_interaction(scene, hit2, si["p"], wo_world, wavelengths)
+            hit_area = si2["valid"] & (si2["emitter"] >= 0)
+            em_val = emitter.eval_emitter(scene, si2["emitter"], si2["wi"], si2["uv"],
+                                          wavelengths, rad)
+            value = torch.where(hit_area[None, :], em_val, 0.0)
+            em_pdf_area = emitter.pdf_emitter_direct(scene, si2["emitter"], wo_world,
+                                                     si2["t"], si2["ng"])
+            em_pdf = torch.where(hit_area, em_pdf_area, 0.0)
+            if scene.has_environment:
+                hit_env = ~si2["valid"]
+                env_val = emitter.eval_environment(scene, wo_world, wavelengths, rad)
+                value = torch.where(hit_env[None, :], env_val, value)
+                env_ids = torch.full((L,), scene.environment_idx, dtype=torch.int32, device=dev)
+                env_pdf = emitter.pdf_emitter_direct(scene, env_ids, wo_world, si2["t"],
+                                                     vec.neg(wo_world))
+                em_pdf = torch.where(hit_env, env_pdf, em_pdf)
+                hit_em = hit_area | hit_env
+            else:
+                hit_em = hit_area
+            em_pdf = torch.where(bs["delta"], 0.0, em_pdf)
+            mis = m.mis_power2(bs["pdf"] * frac_bsdf, em_pdf * frac_lum) * w_bsdf
+            result = result + torch.where((go & hit_em)[None, :],
+                                          bs["weight"] * value * mis[None, :], 0.0)
 
     return result, rng_state
 
@@ -412,112 +416,115 @@ def sample_volpath(scene, ray, rng_state, depth_cap=DEFAULT_MAX_DEPTH_CAP):
     max_depth = scene.max_depth
 
     for idx in range(volpath_iters(scene, depth_cap)):
-        depth = idx + 1
+        with tracing.span(tracing.BOUNCE):
+            depth = idx + 1
 
-        # -------- draws (unconditional, fixed order) --------
-        u_dist, rng_state = rng.next_float32(rng_state)
-        u_nee, rng_state = rng.next_2d(rng_state)
-        u_phase, rng_state = rng.next_2d(rng_state)
-        u_bsdf1, rng_state = rng.next_float32(rng_state)
-        u_bsdf2, rng_state = rng.next_2d(rng_state)
-        u_rr, rng_state = rng.next_float32(rng_state)
+            # -------- draws (unconditional, fixed order) --------
+            u_dist, rng_state = rng.next_float32(rng_state)
+            u_nee, rng_state = rng.next_2d(rng_state)
+            u_phase, rng_state = rng.next_2d(rng_state)
+            u_bsdf1, rng_state = rng.next_float32(rng_state)
+            u_bsdf2, rng_state = rng.next_2d(rng_state)
+            u_rr, rng_state = rng.next_float32(rng_state)
 
-        in_medium = medium >= 0
-        mp = med.fetch_medium(scene, medium, wavelengths)
-        ms = med.sample_distance(mp, channel, u_dist, si["t"], scene=scene, o=ray_o, d=ray_d,
-                                 med_ids=medium)
-        medium_scatter = active & in_medium & ms["scatter"]
-        surface = active & ~medium_scatter
+            in_medium = medium >= 0
+            mp = med.fetch_medium(scene, medium, wavelengths)
+            ms = med.sample_distance(mp, channel, u_dist, si["t"], scene=scene, o=ray_o, d=ray_d,
+                                     med_ids=medium)
+            medium_scatter = active & in_medium & ms["scatter"]
+            surface = active & ~medium_scatter
 
-        # ======== medium interaction (volpath.cpp:44-74) ========
-        # sigma_s at the scatter point is sigma_s * rho(x) (rho 1 in a
-        # homogeneous medium), as the pdf holds rho
-        tp_med = (throughput * (mp["sigma_s"] * ms["rho"][None, :]) * ms["tr"]
-                  / torch.clamp(ms["pdf"], min=1e-30)[None, :])
-        ms_p = vec.add(ray_o, vec.scale(ray_d, ms["t"]))
-        # one emitter sample and one transmittance march for both branches,
-        # from the scatter point or the surface
-        ref_p = vec.where(medium_scatter, ms_p, si["p"])
-        ds = emitter.sample_emitter_direct(scene, ref_p, wavelengths, u_nee, rad)
-        tr_n = _attenuated_transmittance(scene, ref_p, ds["d"], ds["dist"], medium,
-                                         wavelengths)
-        ph_val = med.phase_eval(ray_d, ds["d"], mp["g"])
-        contrib_m = tp_med * ds["spec"] * tr_n * ph_val[None, :]
-        result = result + torch.where((medium_scatter & (ds["pdf"] > 0.0))[None, :],
-                                      contrib_m, 0.0)
-        # no phase sampling where the next depth passes max_depth
-        # (volpath.cpp:56-57)
-        med_continue = medium_scatter
-        if max_depth > 0:
-            med_continue = med_continue & (depth + 1 < max_depth)
-        wo_phase, _, ph_w = med.phase_sample(ray_d, mp["g"], u_phase)
-        tp_after_med = tp_med * ph_w[None, :]
+            # ======== medium interaction (volpath.cpp:44-74) ========
+            # sigma_s at the scatter point is sigma_s * rho(x) (rho 1 in a
+            # homogeneous medium), as the pdf holds rho
+            tp_med = (throughput * (mp["sigma_s"] * ms["rho"][None, :]) * ms["tr"]
+                      / torch.clamp(ms["pdf"], min=1e-30)[None, :])
+            ms_p = vec.add(ray_o, vec.scale(ray_d, ms["t"]))
+            # one emitter sample and one transmittance march for both branches,
+            # from the scatter point or the surface
+            ref_p = vec.where(medium_scatter, ms_p, si["p"])
+            ds = emitter.sample_emitter_direct(scene, ref_p, wavelengths, u_nee, rad)
+            tr_n = _attenuated_transmittance(scene, ref_p, ds["d"], ds["dist"], medium,
+                                             wavelengths)
+            ph_val = med.phase_eval(ray_d, ds["d"], mp["g"])
+            contrib_m = tp_med * ds["spec"] * tr_n * ph_val[None, :]
+            result = result + torch.where((medium_scatter & (ds["pdf"] > 0.0))[None, :],
+                                          contrib_m, 0.0)
+            # no phase sampling where the next depth passes max_depth
+            # (volpath.cpp:56-57)
+            med_continue = medium_scatter
+            if max_depth > 0:
+                med_continue = med_continue & (depth + 1 < max_depth)
+            wo_phase, _, ph_w = med.phase_sample(ray_d, mp["g"], u_phase)
+            tp_after_med = tp_med * ph_w[None, :]
 
-        # ======== surface interaction (volpath.cpp:75-155) ========
-        # the escape weight of lanes in a medium that reached the surface
-        esc = ms["tr"] / torch.clamp(ms["pdf"], min=1e-30)[None, :]
-        tp_surf = torch.where(in_medium[None, :], throughput * esc, throughput)
-        show_emit = emitted_radiance & scattered if scene.hide_emitters else emitted_radiance
-        # the environment on a miss (volpath.cpp:80-91)
-        if scene.has_environment:
-            env = emitter.eval_environment(scene, ray_d, wavelengths, rad)
-            take_env = surface & ~si["valid"] & show_emit
-            result = result + torch.where(take_env[None, :], tp_surf * env, 0.0)
-        # an area emitter hit (volpath.cpp:93-97)
-        em_val = emitter.eval_emitter(scene, si["emitter"], si["wi"], si["uv"], wavelengths, rad)
-        take_em = surface & si["valid"] & (si["emitter"] >= 0) & show_emit
-        result = result + torch.where(take_em[None, :], tp_surf * em_val, 0.0)
+            # ======== surface interaction (volpath.cpp:75-155) ========
+            # the escape weight of lanes in a medium that reached the surface
+            esc = ms["tr"] / torch.clamp(ms["pdf"], min=1e-30)[None, :]
+            tp_surf = torch.where(in_medium[None, :], throughput * esc, throughput)
+            show_emit = emitted_radiance & scattered if scene.hide_emitters else emitted_radiance
+            # the environment on a miss (volpath.cpp:80-91)
+            if scene.has_environment:
+                env = emitter.eval_environment(scene, ray_d, wavelengths, rad)
+                take_env = surface & ~si["valid"] & show_emit
+                result = result + torch.where(take_env[None, :], tp_surf * env, 0.0)
+            # an area emitter hit (volpath.cpp:93-97)
+            em_val = emitter.eval_emitter(scene, si["emitter"], si["wi"], si["uv"], wavelengths,
+                                          rad)
+            take_em = surface & si["valid"] & (si["emitter"] >= 0) & show_emit
+            result = result + torch.where(take_em[None, :], tp_surf * em_val, 0.0)
 
-        # NEE from smooth BSDFs, attenuated, no MIS (volpath.cpp:99-112)
-        p = bsdf.material_params(scene, si["bsdf"], si["uv"], wavelengths,
-                                 duv=(si["duv_dx"], si["duv_dy"]))
-        wo_nee = frame.to_local(si["sh"], ds["d"])
-        f_nee = bsdf.eval_bsdf(p, si["wi"], wo_nee)
-        take_nee = surface & si["valid"] & p["smooth"] & (ds["pdf"] > 0.0)
-        result = result + torch.where(take_nee[None, :], tp_surf * ds["spec"] * tr_n * f_nee, 0.0)
+            # NEE from smooth BSDFs, attenuated, no MIS (volpath.cpp:99-112)
+            p = bsdf.material_params(scene, si["bsdf"], si["uv"], wavelengths,
+                                     duv=(si["duv_dx"], si["duv_dy"]))
+            wo_nee = frame.to_local(si["sh"], ds["d"])
+            f_nee = bsdf.eval_bsdf(p, si["wi"], wo_nee)
+            take_nee = surface & si["valid"] & p["smooth"] & (ds["pdf"] > 0.0)
+            result = result + torch.where(take_nee[None, :],
+                                          tp_surf * ds["spec"] * tr_n * f_nee, 0.0)
 
-        # BSDF sampling and the recursion's bookkeeping (volpath.cpp:114-155)
-        bs = bsdf.sample_bsdf(p, si["wi"], u_bsdf1, u_bsdf2)
-        wo_world = frame.to_world(si["sh"], bs["wo"])
-        recursive = max_depth < 0 or depth + 1 < max_depth
-        depth_ok = max_depth < 0 or depth < max_depth
-        gather_direct = bs["delta"] & (~bs["null"] | null_chain)
-        if not depth_ok:
-            gather_direct = torch.zeros_like(gather_direct)
-        new_emitted = gather_direct
-        recursive = gather_direct | recursive
-        new_null_chain = torch.where(gather_direct, True, null_chain & bs["null"])
-        surf_continue = surface & si["valid"] & bs["valid"] & recursive
-        tp_after_surf = tp_surf * bs["weight"]
-        new_eta = torch.where(surf_continue, eta * bs["eta"], eta)
-        new_medium_surf = inter.target_medium(si, wo_world, medium)
-        new_scattered = scattered | (surface & ~bs["null"])
+            # BSDF sampling and the recursion's bookkeeping (volpath.cpp:114-155)
+            bs = bsdf.sample_bsdf(p, si["wi"], u_bsdf1, u_bsdf2)
+            wo_world = frame.to_world(si["sh"], bs["wo"])
+            recursive = max_depth < 0 or depth + 1 < max_depth
+            depth_ok = max_depth < 0 or depth < max_depth
+            gather_direct = bs["delta"] & (~bs["null"] | null_chain)
+            if not depth_ok:
+                gather_direct = torch.zeros_like(gather_direct)
+            new_emitted = gather_direct
+            recursive = gather_direct | recursive
+            new_null_chain = torch.where(gather_direct, True, null_chain & bs["null"])
+            surf_continue = surface & si["valid"] & bs["valid"] & recursive
+            tp_after_surf = tp_surf * bs["weight"]
+            new_eta = torch.where(surf_continue, eta * bs["eta"], eta)
+            new_medium_surf = inter.target_medium(si, wo_world, medium)
+            new_scattered = scattered | (surface & ~bs["null"])
 
-        # ======== merge the branches, then the next cast ========
-        next_o = vec.where(medium_scatter, ms_p, si["p"])
-        next_d = vec.where(medium_scatter, wo_phase, wo_world)
-        throughput = torch.where(medium_scatter[None, :], tp_after_med, tp_after_surf)
-        medium = torch.where(medium_scatter, medium, new_medium_surf)
-        eta = torch.where(medium_scatter, eta, new_eta)
-        scattered = medium_scatter | new_scattered
-        null_chain = ~medium_scatter & new_null_chain
-        emitted_radiance = ~medium_scatter & new_emitted
-        active = (surface & surf_continue) | (medium_scatter & med_continue)
-        active = active & (throughput.amax(dim=0) > 0.0)
+            # ======== merge the branches, then the next cast ========
+            next_o = vec.where(medium_scatter, ms_p, si["p"])
+            next_d = vec.where(medium_scatter, wo_phase, wo_world)
+            throughput = torch.where(medium_scatter[None, :], tp_after_med, tp_after_surf)
+            medium = torch.where(medium_scatter, medium, new_medium_surf)
+            eta = torch.where(medium_scatter, eta, new_eta)
+            scattered = medium_scatter | new_scattered
+            null_chain = ~medium_scatter & new_null_chain
+            emitted_radiance = ~medium_scatter & new_emitted
+            active = (surface & surf_continue) | (medium_scatter & med_continue)
+            active = active & (throughput.amax(dim=0) > 0.0)
 
-        mint = inter.spawn_ray_mint(next_o)
-        next_hit = traverse.intersect(scene, next_o, next_d, torch.where(active, mint, 0.0),
-                                      torch.where(active, torch.inf, -1.0), coherent=False)
-        si = inter.compute_interaction(scene, next_hit, next_o, next_d, wavelengths)
+            mint = inter.spawn_ray_mint(next_o)
+            next_hit = traverse.intersect(scene, next_o, next_d, torch.where(active, mint, 0.0),
+                                          torch.where(active, torch.inf, -1.0), coherent=False)
+            si = inter.compute_interaction(scene, next_hit, next_o, next_d, wavelengths)
 
-        # -------- Russian roulette (volpath.cpp:158-164) --------
-        if depth + 1 >= scene.rr_depth:
-            q = torch.clamp(throughput.amax(dim=0) * eta * eta, max=0.95).detach()
-            active = active & ~(u_rr >= q)
-            throughput = torch.where(active[None, :],
-                                     throughput / torch.clamp(q, min=1e-8)[None, :],
-                                     throughput)
-        ray_o, ray_d = next_o, next_d
+            # -------- Russian roulette (volpath.cpp:158-164) --------
+            if depth + 1 >= scene.rr_depth:
+                q = torch.clamp(throughput.amax(dim=0) * eta * eta, max=0.95).detach()
+                active = active & ~(u_rr >= q)
+                throughput = torch.where(active[None, :],
+                                         throughput / torch.clamp(q, min=1e-8)[None, :],
+                                         throughput)
+            ray_o, ray_d = next_o, next_d
 
     return result, rng_state
 

@@ -63,7 +63,7 @@ from misaki_tpu_torch.scene.types import (
     BSDF_ROUGH_DIELECTRIC,
     EM_ENVMAP,
 )
-from misaki_tpu_torch.utils import cuda_build
+from misaki_tpu_torch.utils import cuda_build, tracing
 from misaki_tpu_torch.utils.logging import get_logger
 
 SRC = cuda_build.CSRC / "ppm_density.cu"
@@ -72,12 +72,6 @@ PHOTON_BLOCK = 2048     # the photon count is rounded up to a multiple of it
 GLOSSY_LANES = 1 << 22  # pair lanes of one glossy sub-block (photons x visible points)
 _GLOSSY_KINDS = (BSDF_ROUGH_CONDUCTOR, BSDF_ROUGH_DIELECTRIC, BSDF_DISNEY)
 _M32 = 0xFFFFFFFF
-
-# Launch count of the density kernel: `density_estimate` adds one where it
-# launches it (one estimate, several CUDA kernels), and nowhere else.
-density_launches = 0
-# The CUDA kernels those estimates enqueued (the binning's and the gather's).
-density_cuda_launches = 0
 
 GRID_AXIS = 128   # most cells of the density grid an axis
 # the gather's margin r' = sqrt(r2) * REL_MARGIN + ABS_MARGIN, each step in
@@ -183,87 +177,88 @@ def _camera_pass(scene, it, seed, wavelengths, budget, sppm_mode, rad):
 
     kinds = scene.bsdf_kinds
     for depth in range(budget):
-        # emitted radiance on the first hit or through a delta chain
-        # (sppm.cpp:121-124)
-        em_ok = active & (si["emitter"] >= 0)
-        see_emitter = em_ok if depth == 0 else em_ok & specular
-        if not scene.hide_emitters or depth > 0:
-            em_val = emitter.eval_emitter(scene, si["emitter"], si["wi"], si["uv"],
-                                          wavelengths, rad)
-            value = value + torch.where(see_emitter[None, :], beta * em_val, 0.0)
+        with tracing.span(tracing.BOUNCE):
+            # emitted radiance on the first hit or through a delta chain
+            # (sppm.cpp:121-124)
+            em_ok = active & (si["emitter"] >= 0)
+            see_emitter = em_ok if depth == 0 else em_ok & specular
+            if not scene.hide_emitters or depth > 0:
+                em_val = emitter.eval_emitter(scene, si["emitter"], si["wi"], si["uv"],
+                                              wavelengths, rad)
+                value = value + torch.where(see_emitter[None, :], beta * em_val, 0.0)
 
-        p = bsdf.material_params(scene, si["bsdf"], si["uv"], wavelengths,
-                                 duv=(si["duv_dx"], si["duv_dy"]))
+            p = bsdf.material_params(scene, si["bsdf"], si["uv"], wavelengths,
+                                     duv=(si["duv_dx"], si["duv_dy"]))
 
-        if sppm_mode:
-            # visibility-tested light sampling at every smooth vertex
-            # (sppm.cpp:126-144); photons of depth >= 1 carry the rest
-            u_nee, state = rng.next_2d(state)
-            ds = emitter.sample_emitter_direct(scene, si["p"], wavelengths, u_nee, rad)
-            possible = active & p["smooth"] & (ds["pdf"] > 0.0)
-            sh_mint = m.RayEpsilon * (1.0 + vec.max_abs(si["p"]))
-            occ = traverse.ray_test(scene, si["p"], ds["d"],
-                                    torch.where(possible, sh_mint, 0.0),
-                                    torch.where(possible, ds["dist"] * (1.0 - m.ShadowEpsilon),
-                                                -1.0))
-            f_nee = bsdf.eval_bsdf(p, si["wi"], frame.to_local(si["sh"], ds["d"]))
-            value = value + torch.where((possible & ~occ)[None, :], beta * ds["spec"] * f_nee,
-                                        0.0)
+            if sppm_mode:
+                # visibility-tested light sampling at every smooth vertex
+                # (sppm.cpp:126-144); photons of depth >= 1 carry the rest
+                u_nee, state = rng.next_2d(state)
+                ds = emitter.sample_emitter_direct(scene, si["p"], wavelengths, u_nee, rad)
+                possible = active & p["smooth"] & (ds["pdf"] > 0.0)
+                sh_mint = m.RayEpsilon * (1.0 + vec.max_abs(si["p"]))
+                occ = traverse.ray_test(scene, si["p"], ds["d"],
+                                        torch.where(possible, sh_mint, 0.0),
+                                        torch.where(possible, ds["dist"] * (1.0 - m.ShadowEpsilon),
+                                                    -1.0))
+                f_nee = bsdf.eval_bsdf(p, si["wi"], frame.to_local(si["sh"], ds["d"]))
+                value = value + torch.where((possible & ~occ)[None, :], beta * ds["spec"] * f_nee,
+                                            0.0)
 
-        # park the visible point at the first diffuse-lobe hit on a side the
-        # camera can shade, the normal flipped to the camera's side for
-        # twosided materials
-        front = frame.cos_theta(si["wi"]) > 0.0
-        shadeable = front | p["twosided"]
-        store = (active & _kind_mask(p["kind"], kinds, (BSDF_DIFFUSE, BSDF_PLASTIC))
-                 & shadeable & ~vp["valid"])
-        n_sh = vec.where(front, si["sh"]["n"], vec.neg(si["sh"]["n"]))
-        # in sppm, a glossy visible point where the path reaches the depth
-        # cap on a glossy lobe (sppm.cpp:146-151), with its material stored
-        last = depth == budget - 1
-        store_g = torch.zeros_like(store)
-        if glossy_vps and last:
-            store_g = (active & _kind_mask(p["kind"], kinds, _GLOSSY_KINDS) & shadeable
-                       & ~vp["valid"])
-            # misaki_tpu's _where_tree of p over a zero tree (ppm.py:97-119)
-            vp["mat"] = _map_tree(lambda x: torch.where(
-                store_g[None, :] if x.dim() == 2 else store_g, x, torch.zeros_like(x)), p)
-        store_any = store | store_g
-        vp.update(
-            p=vec.where(store_any, si["p"], vp["p"]),
-            wi=vec.where(store_any, vec.neg(d), vp["wi"]),
-            n=vec.where(store_any, n_sh, vp["n"]),
-            beta=torch.where(store_any[None, :], beta, vp["beta"]),
-            # rho stays 0 on glossy lanes
-            rho=torch.where(store[None, :], p["reflectance"], vp["rho"]),
-            valid=vp["valid"] | store_any,
-            glossy=vp["glossy"] | store_g,
-        )
-        active = active & ~store_any
-        if last:
-            break
+            # park the visible point at the first diffuse-lobe hit on a side the
+            # camera can shade, the normal flipped to the camera's side for
+            # twosided materials
+            front = frame.cos_theta(si["wi"]) > 0.0
+            shadeable = front | p["twosided"]
+            store = (active & _kind_mask(p["kind"], kinds, (BSDF_DIFFUSE, BSDF_PLASTIC))
+                     & shadeable & ~vp["valid"])
+            n_sh = vec.where(front, si["sh"]["n"], vec.neg(si["sh"]["n"]))
+            # in sppm, a glossy visible point where the path reaches the depth
+            # cap on a glossy lobe (sppm.cpp:146-151), with its material stored
+            last = depth == budget - 1
+            store_g = torch.zeros_like(store)
+            if glossy_vps and last:
+                store_g = (active & _kind_mask(p["kind"], kinds, _GLOSSY_KINDS) & shadeable
+                           & ~vp["valid"])
+                # misaki_tpu's _where_tree of p over a zero tree (ppm.py:97-119)
+                vp["mat"] = _map_tree(lambda x: torch.where(
+                    store_g[None, :] if x.dim() == 2 else store_g, x, torch.zeros_like(x)), p)
+            store_any = store | store_g
+            vp.update(
+                p=vec.where(store_any, si["p"], vp["p"]),
+                wi=vec.where(store_any, vec.neg(d), vp["wi"]),
+                n=vec.where(store_any, n_sh, vp["n"]),
+                beta=torch.where(store_any[None, :], beta, vp["beta"]),
+                # rho stays 0 on glossy lanes
+                rho=torch.where(store[None, :], p["reflectance"], vp["rho"]),
+                valid=vp["valid"] | store_any,
+                glossy=vp["glossy"] | store_g,
+            )
+            active = active & ~store_any
+            if last:
+                break
 
-        # continue through non-diffuse lobes (sppm.cpp:153-174)
-        u1, state = rng.next_float32(state)
-        u2, state = rng.next_2d(state)
-        u_rr, state = rng.next_float32(state)
-        bs = bsdf.sample_bsdf(p, si["wi"], u1, u2)
-        active = active & bs["valid"] & (bs["pdf"] > 0.0)
-        beta_new = beta * bs["weight"]
-        q = torch.clamp(beta_new.amax(dim=0), max=0.95)
-        active = active & ~(u_rr >= q)
-        beta = torch.where(active[None, :], beta_new / torch.clamp(q, min=1e-8)[None, :], beta)
-        specular = bs["delta"]
-        wo_world = frame.to_world(si["sh"], bs["wo"])
-        hit = traverse.intersect(scene, si["p"], wo_world,
-                                 torch.where(active, inter.spawn_ray_mint(si["p"]), 0.0),
-                                 torch.where(active, torch.inf, -1.0), coherent=False)
-        if show_env:
-            env = emitter.eval_environment(scene, wo_world, wavelengths, rad)
-            value = value + torch.where((active & (hit["prim"] < 0))[None, :], beta * env, 0.0)
-        si = inter.compute_interaction(scene, hit, si["p"], wo_world, wavelengths)
-        d = wo_world
-        active = active & si["valid"]
+            # continue through non-diffuse lobes (sppm.cpp:153-174)
+            u1, state = rng.next_float32(state)
+            u2, state = rng.next_2d(state)
+            u_rr, state = rng.next_float32(state)
+            bs = bsdf.sample_bsdf(p, si["wi"], u1, u2)
+            active = active & bs["valid"] & (bs["pdf"] > 0.0)
+            beta_new = beta * bs["weight"]
+            q = torch.clamp(beta_new.amax(dim=0), max=0.95)
+            active = active & ~(u_rr >= q)
+            beta = torch.where(active[None, :], beta_new / torch.clamp(q, min=1e-8)[None, :], beta)
+            specular = bs["delta"]
+            wo_world = frame.to_world(si["sh"], bs["wo"])
+            hit = traverse.intersect(scene, si["p"], wo_world,
+                                     torch.where(active, inter.spawn_ray_mint(si["p"]), 0.0),
+                                     torch.where(active, torch.inf, -1.0), coherent=False)
+            if show_env:
+                env = emitter.eval_environment(scene, wo_world, wavelengths, rad)
+                value = value + torch.where((active & (hit["prim"] < 0))[None, :], beta * env, 0.0)
+            si = inter.compute_interaction(scene, hit, si["p"], wo_world, wavelengths)
+            d = wo_world
+            active = active & si["valid"]
 
     return value, vp, primary_hit
 
@@ -434,7 +429,7 @@ def build():
     return cuda_build.load_library(SRC, {
         "density_workspace_bytes": ([i64, i64], i64),
         "density_launch": ([p, i64, p, i64, i32, f32, f32, f32, f32, i32, i32, i32, p, i64, p, p,
-                            p, p, p], i32),
+                            p, p, p, p], i32),
     })
 
 
@@ -463,7 +458,9 @@ def density_launch(lib, ph, vps, sppm_mode, grid, stats=None, pair_tests=False):
     """One estimate of library `lib` on packed CUDA inputs over `grid`:
     (phi (4, L), count (L,)). `stats`, a dict, gets "cuda_launches" (the
     kernels one estimate enqueues) and, with `pair_tests`, "pair_tests" (a
-    device tensor: the pairs the gather tested)."""
+    device tensor: the pairs the gather tested). While tracing is on, the
+    kernels add to `density.alive`, `density.contributing` and
+    `density.live`."""
     check_packed(ph, vps)
     L, P = vps.shape[1], ph.shape[1]
     phi = torch.empty((4, L), dtype=torch.float32, device=vps.device)
@@ -480,7 +477,9 @@ def density_launch(lib, ph, vps, sppm_mode, grid, stats=None, pair_tests=False):
     cuda_build.check_launch(lib.density_launch(
         ph.data_ptr(), P, vps.data_ptr(), L, int(bool(sppm_mode)), *grid_args(grid),
         work.data_ptr(), n_bytes, phi.data_ptr(), count.data_ptr(),
-        None if tests is None else tests.data_ptr(), ctypes.byref(launches), stream),
+        None if tests is None else tests.data_ptr(),
+        tracing.device_counter(vps.device, tracing.DENSITY_ALIVE), ctypes.byref(launches),
+        stream),
         "density kernel")
     if stats is not None:
         stats["cuda_launches"] = launches.value
@@ -492,21 +491,33 @@ def density_launch(lib, ph, vps, sppm_mode, grid, stats=None, pair_tests=False):
 def density_estimate(vp, radius2, ph_p, ph_wi, ph_n, ph_flux, ph_ok, sppm_mode, grid=None):
     """One photon depth's density estimate against every visible point (the
     contract of `density_plain`). CPU tensors take the plain twin (`grid`
-    unused); CUDA tensors launch the kernel over `grid`, which they need."""
-    global density_launches, density_cuda_launches
-    dev = radius2.device
-    if dev.type == "cpu":
-        return density_plain(vp, radius2, ph_p, ph_wi, ph_n, ph_flux, ph_ok, sppm_mode)
-    if dev.type != "cuda":
-        raise ValueError(f"no density kernel for device {dev}")
-    if grid is None:
-        raise ValueError("the density kernel needs a grid (`scene_grid` of the frame)")
-    stats = {}
-    out = density_launch(build(), *pack_inputs(vp, radius2, ph_p, ph_wi, ph_n, ph_flux, ph_ok),
-                         sppm_mode, grid, stats=stats)
-    density_launches += 1
-    density_cuda_launches += stats.get("cuda_launches", 0)
-    return out
+    unused); CUDA tensors launch the kernel over `grid`, which they need.
+    While tracing is on, P and L go to `density.photons` and
+    `density.visible_points`, and the kernel (on the CPU, torch ops) counts
+    the photons alive, those alive with wi . n > 0 and the live visible
+    points."""
+    with tracing.span(tracing.DENSITY):
+        dev = radius2.device
+        tracing.add(tracing.DENSITY_PHOTONS, ph_ok.shape[0])
+        tracing.add(tracing.DENSITY_VPS, radius2.shape[0])
+        if dev.type == "cpu":
+            if tracing.enabled():
+                wiz = ph_wi[0] * ph_n[0] + ph_wi[1] * ph_n[1] + ph_wi[2] * ph_n[2]
+                tracing.add(tracing.DENSITY_ALIVE, ph_ok.sum())
+                tracing.add(tracing.DENSITY_CONTRIBUTING, (ph_ok & (wiz > 0.0)).sum())
+                tracing.add(tracing.DENSITY_LIVE, (vp["valid"] & ~vp["glossy"]).sum())
+            return density_plain(vp, radius2, ph_p, ph_wi, ph_n, ph_flux, ph_ok, sppm_mode)
+        if dev.type != "cuda":
+            raise ValueError(f"no density kernel for device {dev}")
+        if grid is None:
+            raise ValueError("the density kernel needs a grid (`scene_grid` of the frame)")
+        stats = {}
+        out = density_launch(build(),
+                             *pack_inputs(vp, radius2, ph_p, ph_wi, ph_n, ph_flux, ph_ok),
+                             sppm_mode, grid, stats=stats)
+        tracing.launches["density"] += 1
+        tracing.launches["density_cuda"] += stats.get("cuda_launches", 0)
+        return out
 
 
 def glossy_block(n_vps, n_photons):
@@ -526,48 +537,49 @@ def _density_glossy(vp, radius2, ph_p, ph_sh, ph_wi_local, ph_flux, ph_ok):
     photon against all of them in sub-blocks of `glossy_block` photons;
     each sub-block is summed over its photons, then the sub-blocks in order,
     as misaki_tpu sums its blocks. Returns (phi (4, L), count (L,))."""
-    L = radius2.shape[0]
-    P = ph_ok.shape[0]
-    dev = radius2.device
-    phi = torch.zeros((4, L), device=dev)
-    count = torch.zeros(L, device=dev)
-    sel = torch.nonzero(vp["valid"] & vp["glossy"]).squeeze(1)
-    n = sel.numel()
-    if n == 0 or P == 0:
+    with tracing.span(tracing.DENSITY):
+        L = radius2.shape[0]
+        P = ph_ok.shape[0]
+        dev = radius2.device
+        phi = torch.zeros((4, L), device=dev)
+        count = torch.zeros(L, device=dev)
+        sel = torch.nonzero(vp["valid"] & vp["glossy"]).squeeze(1)
+        n = sel.numel()
+        if n == 0 or P == 0:
+            return phi, count
+        G = glossy_block(n, P)
+
+        def tile(x):     # a visible point's value, once per photon of the sub-block
+            x = x[..., sel]
+            return x.repeat(1, G) if x.dim() == 2 else x.repeat(G)
+
+        mat = _map_tree(tile, vp["mat"])
+        wi_cam = tuple(tile(c) for c in vp["wi"])
+        vpp = tuple(tile(c) for c in vp["p"])
+        r2 = tile(radius2)
+        acc_phi = torch.zeros((4, n), device=dev)
+        acc_count = torch.zeros(n, device=dev)
+        for s in range(0, P, G):
+
+            def each(x):  # a photon's value, once per visible point
+                return x[..., s:s + G].repeat_interleave(n, dim=-1)
+
+            sh = {k: tuple(each(c) for c in ph_sh[k]) for k in ("s", "t", "n")}
+            wo = tuple(sh[k][0] * wi_cam[0] + sh[k][1] * wi_cam[1] + sh[k][2] * wi_cam[2]
+                       for k in ("s", "t", "n"))
+            f = bsdf.eval_bsdf(mat, tuple(each(c) for c in ph_wi_local), wo)   # f * cos(wo)
+            cz = wo[2]
+            safe = torch.abs(cz) > 1e-4
+            f = torch.where(safe[None, :], f / torch.where(safe, cz, 1.0)[None, :], 0.0)
+            dx, dy, dz = (each(ph_p[k]) - vpp[k] for k in range(3))
+            pair = (dx * dx + dy * dy + dz * dz < r2) & each(ph_ok)
+            contrib = torch.where(pair[None, :], f * each(ph_flux), 0.0)
+            hits = (pair & (torch.abs(f).amax(dim=0) > 0.0)).to(torch.float32)
+            acc_phi = acc_phi + contrib.reshape(4, -1, n).sum(dim=1)
+            acc_count = acc_count + hits.reshape(-1, n).sum(dim=0)
+        phi[:, sel] = acc_phi
+        count[sel] = acc_count
         return phi, count
-    G = glossy_block(n, P)
-
-    def tile(x):     # a visible point's value, once per photon of the sub-block
-        x = x[..., sel]
-        return x.repeat(1, G) if x.dim() == 2 else x.repeat(G)
-
-    mat = _map_tree(tile, vp["mat"])
-    wi_cam = tuple(tile(c) for c in vp["wi"])
-    vpp = tuple(tile(c) for c in vp["p"])
-    r2 = tile(radius2)
-    acc_phi = torch.zeros((4, n), device=dev)
-    acc_count = torch.zeros(n, device=dev)
-    for s in range(0, P, G):
-
-        def each(x):  # a photon's value, once per visible point
-            return x[..., s:s + G].repeat_interleave(n, dim=-1)
-
-        sh = {k: tuple(each(c) for c in ph_sh[k]) for k in ("s", "t", "n")}
-        wo = tuple(sh[k][0] * wi_cam[0] + sh[k][1] * wi_cam[1] + sh[k][2] * wi_cam[2]
-                   for k in ("s", "t", "n"))
-        f = bsdf.eval_bsdf(mat, tuple(each(c) for c in ph_wi_local), wo)   # f * cos(wo)
-        cz = wo[2]
-        safe = torch.abs(cz) > 1e-4
-        f = torch.where(safe[None, :], f / torch.where(safe, cz, 1.0)[None, :], 0.0)
-        dx, dy, dz = (each(ph_p[k]) - vpp[k] for k in range(3))
-        pair = (dx * dx + dy * dy + dz * dz < r2) & each(ph_ok)
-        contrib = torch.where(pair[None, :], f * each(ph_flux), 0.0)
-        hits = (pair & (torch.abs(f).amax(dim=0) > 0.0)).to(torch.float32)
-        acc_phi = acc_phi + contrib.reshape(4, -1, n).sum(dim=1)
-        acc_count = acc_count + hits.reshape(-1, n).sum(dim=0)
-    phi[:, sel] = acc_phi
-    count[sel] = acc_count
-    return phi, count
 
 
 def _photon_pass(scene, it, seed, wavelengths, vp, radius2, budget, sppm_mode, grid):
@@ -600,35 +612,36 @@ def _photon_pass(scene, it, seed, wavelengths, vp, radius2, budget, sppm_mode, g
     alive = alive & si["valid"]
 
     for depth in range(budget):
-        # sppm splats only scattered photons (depth >= 1): the camera's NEE
-        # carries direct light (sppm.cpp:245-248); the photonmapper, whose
-        # camera pass has no NEE, splats every depth (photonmapper.cpp:133-138)
-        if not (sppm_mode and depth == 0):
-            dphi, dcount = density_estimate(vp, radius2, si["p"], vec.neg(d), si["sh"]["n"],
-                                            flux, alive, sppm_mode, grid=grid)
-            phi, count = phi + dphi, count + dcount
-            if glossy:
-                gphi, gcount = _density_glossy(vp, radius2, si["p"], si["sh"], si["wi"],
-                                               flux, alive)
-                phi_g, count = phi_g + gphi, count + gcount
-        if depth == budget - 1:
-            break
-        p = bsdf.material_params(scene, si["bsdf"], si["uv"], wavelengths)
-        u1, state = rng.next_float32(state)
-        u2, state = rng.next_2d(state)
-        u_rr, state = rng.next_float32(state)
-        bs = bsdf.sample_bsdf(p, si["wi"], u1, u2)
-        alive = alive & bs["valid"] & (bs["pdf"] > 0.0)
-        fnew = flux * bs["weight"]
-        q = torch.clamp(fnew.amax(dim=0) / torch.clamp(flux.amax(dim=0), min=1e-20), max=0.95)
-        alive = alive & (u_rr < q)
-        flux = torch.where(alive[None, :], fnew / torch.clamp(q, min=1e-8)[None, :], flux)
-        d = frame.to_world(si["sh"], bs["wo"])
-        hit = traverse.intersect(scene, si["p"], d,
-                                 torch.where(alive, inter.spawn_ray_mint(si["p"]), 0.0),
-                                 torch.where(alive, torch.inf, -1.0), coherent=False)
-        si = inter.compute_interaction(scene, hit, si["p"], d, wavelengths)
-        alive = alive & si["valid"]
+        with tracing.span(tracing.BOUNCE):
+            # sppm splats only scattered photons (depth >= 1): the camera's NEE
+            # carries direct light (sppm.cpp:245-248); the photonmapper, whose
+            # camera pass has no NEE, splats every depth (photonmapper.cpp:133-138)
+            if not (sppm_mode and depth == 0):
+                dphi, dcount = density_estimate(vp, radius2, si["p"], vec.neg(d), si["sh"]["n"],
+                                                flux, alive, sppm_mode, grid=grid)
+                phi, count = phi + dphi, count + dcount
+                if glossy:
+                    gphi, gcount = _density_glossy(vp, radius2, si["p"], si["sh"], si["wi"],
+                                                   flux, alive)
+                    phi_g, count = phi_g + gphi, count + gcount
+            if depth == budget - 1:
+                break
+            p = bsdf.material_params(scene, si["bsdf"], si["uv"], wavelengths)
+            u1, state = rng.next_float32(state)
+            u2, state = rng.next_2d(state)
+            u_rr, state = rng.next_float32(state)
+            bs = bsdf.sample_bsdf(p, si["wi"], u1, u2)
+            alive = alive & bs["valid"] & (bs["pdf"] > 0.0)
+            fnew = flux * bs["weight"]
+            q = torch.clamp(fnew.amax(dim=0) / torch.clamp(flux.amax(dim=0), min=1e-20), max=0.95)
+            alive = alive & (u_rr < q)
+            flux = torch.where(alive[None, :], fnew / torch.clamp(q, min=1e-8)[None, :], flux)
+            d = frame.to_world(si["sh"], bs["wo"])
+            hit = traverse.intersect(scene, si["p"], d,
+                                     torch.where(alive, inter.spawn_ray_mint(si["p"]), 0.0),
+                                     torch.where(alive, torch.inf, -1.0), coherent=False)
+            si = inter.compute_interaction(scene, hit, si["p"], d, wavelengths)
+            alive = alive & si["valid"]
 
     return phi, phi_g, count
 
@@ -699,52 +712,53 @@ def render_ppm(scene, seed=0, depth_cap=16, checkpoint_path=None, checkpoint_eve
     compatible snapshot resumed from (each iteration's streams derive from
     (it, seed), so the finished image is the uninterrupted one to the bit);
     progress(done_iterations, iterations) after each iteration."""
-    W, H = scene.film_width, scene.film_height
-    L = W * H
-    dev = scene.device
-    sppm_mode = scene.integrator == "sppm"
-    budget = depth_budget(scene, depth_cap)
-    iters = max(int(scene.ppm_iterations), 1)
-    r0 = initial_radius(scene)
-    # the density grid, made once a frame: no estimate waits on the host
-    grid = scene_grid(scene, r0)
+    with tracing.span(tracing.FRAME):
+        W, H = scene.film_width, scene.film_height
+        L = W * H
+        dev = scene.device
+        sppm_mode = scene.integrator == "sppm"
+        budget = depth_budget(scene, depth_cap)
+        iters = max(int(scene.ppm_iterations), 1)
+        r0 = initial_radius(scene)
+        # the density grid, made once a frame: no estimate waits on the host
+        grid = scene_grid(scene, r0)
 
-    with torch.inference_mode():
-        st = {"value": torch.zeros((3, L), device=dev), "tau": torch.zeros((3, L), device=dev),
-              "n": torch.zeros(L, device=dev),
-              "radius": torch.full((L,), r0, dtype=torch.float32, device=dev),
-              "alpha": torch.zeros(L, device=dev), "iters": torch.zeros((), device=dev)}
-        start = 0
-        fingerprint = ppm_fingerprint(scene, seed, budget)
+        with torch.inference_mode():
+            st = {"value": torch.zeros((3, L), device=dev), "tau": torch.zeros((3, L), device=dev),
+                  "n": torch.zeros(L, device=dev),
+                  "radius": torch.full((L,), r0, dtype=torch.float32, device=dev),
+                  "alpha": torch.zeros(L, device=dev), "iters": torch.zeros((), device=dev)}
+            start = 0
+            fingerprint = ppm_fingerprint(scene, seed, budget)
+            if checkpoint_path is not None and os.path.exists(checkpoint_path):
+                with np.load(checkpoint_path, allow_pickle=False) as data:
+                    if str(data["fingerprint"]) == fingerprint:
+                        st = {k: torch.from_numpy(data[k]).to(dev) for k in st}
+                        start = int(data["next_it"])
+                        get_logger().info("resuming %s from %s at iteration %d/%d",
+                                          scene.integrator, checkpoint_path, start, iters)
+                    else:
+                        get_logger().warning(
+                            "checkpoint %s does not match this render (have %r, want %r): starting "
+                            "fresh", checkpoint_path, str(data["fingerprint"]), fingerprint)
+
+            for it in range(start, iters):
+                st = ppm_iteration(scene, st, it, int(seed), budget, sppm_mode, grid)
+                if progress is not None:
+                    progress(it + 1, iters)
+                if (checkpoint_path is not None and checkpoint_every > 0
+                        and (it + 1) % checkpoint_every == 0 and it + 1 < iters):
+                    tmp = f"{checkpoint_path}.tmp.npz"
+                    np.savez(tmp, fingerprint=np.array(fingerprint), next_it=np.int64(it + 1),
+                             **{k: v.cpu().numpy() for k, v in st.items()})
+                    os.replace(tmp, checkpoint_path)
+
+            Np = float(iters) * float(photon_count(scene))
+            r2 = st["radius"] * st["radius"]
+            xyz = st["value"] / float(iters) + st["tau"] / (Np * m.Pi * r2)[None, :]
+            rgb = spec.xyz_to_srgb_image(xyz.T.reshape(H, W, 3))
+            alpha = (st["alpha"] / float(iters)).reshape(H, W)
+            out = {"film": None, "rgb": torch.clamp(rgb, min=0.0), "alpha": alpha}
         if checkpoint_path is not None and os.path.exists(checkpoint_path):
-            with np.load(checkpoint_path, allow_pickle=False) as data:
-                if str(data["fingerprint"]) == fingerprint:
-                    st = {k: torch.from_numpy(data[k]).to(dev) for k in st}
-                    start = int(data["next_it"])
-                    get_logger().info("resuming %s from %s at iteration %d/%d",
-                                      scene.integrator, checkpoint_path, start, iters)
-                else:
-                    get_logger().warning(
-                        "checkpoint %s does not match this render (have %r, want %r): starting "
-                        "fresh", checkpoint_path, str(data["fingerprint"]), fingerprint)
-
-        for it in range(start, iters):
-            st = ppm_iteration(scene, st, it, int(seed), budget, sppm_mode, grid)
-            if progress is not None:
-                progress(it + 1, iters)
-            if (checkpoint_path is not None and checkpoint_every > 0
-                    and (it + 1) % checkpoint_every == 0 and it + 1 < iters):
-                tmp = f"{checkpoint_path}.tmp.npz"
-                np.savez(tmp, fingerprint=np.array(fingerprint), next_it=np.int64(it + 1),
-                         **{k: v.cpu().numpy() for k, v in st.items()})
-                os.replace(tmp, checkpoint_path)
-
-        Np = float(iters) * float(photon_count(scene))
-        r2 = st["radius"] * st["radius"]
-        xyz = st["value"] / float(iters) + st["tau"] / (Np * m.Pi * r2)[None, :]
-        rgb = spec.xyz_to_srgb_image(xyz.T.reshape(H, W, 3))
-        alpha = (st["alpha"] / float(iters)).reshape(H, W)
-        out = {"film": None, "rgb": torch.clamp(rgb, min=0.0), "alpha": alpha}
-    if checkpoint_path is not None and os.path.exists(checkpoint_path):
-        os.remove(checkpoint_path)  # completed: the snapshot is stale
-    return out
+            os.remove(checkpoint_path)  # completed: the snapshot is stale
+        return out

@@ -34,14 +34,9 @@ import ctypes
 
 import torch
 
-from misaki_tpu_torch.utils import cuda_build
+from misaki_tpu_torch.utils import cuda_build, tracing
 
 SRC = cuda_build.CSRC / "texel_fetch.cu"
-
-# Launch counts of the CUDA kernels: `_fetch4` and `fetch4_backward`
-# add one where they launch theirs, and nowhere else.
-fetch_launches = 0
-fetch_bwd_launches = 0
 
 
 def fetch4_plain(table, idx4, w4):
@@ -107,7 +102,6 @@ def _check_taps(idx4, w4):
 
 def _fetch4(table, idx4, w4):
     """The forward: the plain twin on the CPU, the kernel on CUDA."""
-    global fetch_launches
     if table.device.type == "cpu":
         return fetch4_plain(table, idx4, w4)
     if table.data_ptr() % 16:
@@ -122,7 +116,7 @@ def _fetch4(table, idx4, w4):
     cuda_build.check_launch(lib.fetch4_launch(
         table.data_ptr(), table.shape[0], idx4.data_ptr(), w4.data_ptr(), L, out.data_ptr(),
         stream), "texel-fetch kernel")
-    fetch_launches += 1
+    tracing.launches["fetch"] += 1
     return out
 
 
@@ -130,7 +124,6 @@ def fetch4_backward(idx4, w4, grad_out, n):
     """The gradient of the (n, 3) table of a fetch at idx4 / w4 (4, L)
     whose output's gradient is grad_out (3, L) float32 -> (n, 3) float32.
     CPU tensors take the plain twin; CUDA tensors launch the kernel."""
-    global fetch_bwd_launches
     dev = grad_out.device
     _check((("idx4", idx4, torch.int32), ("w4", w4, torch.float32),
             ("grad_out", grad_out, torch.float32)), dev)
@@ -144,7 +137,7 @@ def fetch4_backward(idx4, w4, grad_out, n):
     if idx4.shape[1] == 0:
         return torch.zeros((n, 3), dtype=torch.float32, device=dev)
     grad = backward_launch(build(), idx4, w4, grad_out, n)
-    fetch_bwd_launches += 1
+    tracing.launches["fetch_bwd"] += 1
     return grad
 
 

@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from misaki_tpu_torch.accel import cluster as cl
+from misaki_tpu_torch.utils import tracing
 
 ROOT = Path(__file__).resolve().parents[2]
 BUNNY_XML = ROOT / "misaki_tpu_torch" / "scenes" / "bunny.xml"
@@ -230,7 +231,7 @@ def profile(scene_xml=BUNNY_XML, reps=20, out=DEFAULT_OUT):
     bounds = {"camera": closest_bound(rays, acc, kernel_only(acc, rays)[0]),
               "random": closest_bound(rrays, acc, kernel_only(acc, rrays)[0])}
 
-    before = cl.closest_launches
+    before = tracing.launches["closest"]
     stages = [
         ("primary_rays", lambda: driver.primary_rays(scene, lane, 0)),
         ("pack_rays", lambda: cl.pack_rays(o, d, mint, maxt)),
@@ -241,7 +242,7 @@ def profile(scene_xml=BUNNY_XML, reps=20, out=DEFAULT_OUT):
         ("closest-hit kernel, random rays", lambda: kernel_only(acc, rrays)),
     ]
     rows = [(name, device_ms(fn, reps)) for name, fn in stages]
-    launches = cl.closest_launches - before
+    launches = tracing.launches["closest"] - before
     torch.cuda.synchronize()
 
     ms = dict(rows)

@@ -28,6 +28,7 @@ from torch_helpers import n
 from misaki_tpu.render import ppm as jppm
 from misaki_tpu_torch.render import ppm
 from misaki_tpu_torch.tools import profile_ppm_density as pd
+from misaki_tpu_torch.utils import tracing
 
 
 def _close(got, want):
@@ -196,12 +197,12 @@ def test_cpu_estimate_takes_the_twin(captured):
     """On the CPU the estimate is the dense twin, grid or no grid, and
     launches nothing."""
     args, grid = captured["photonmapper"]
-    before = ppm.density_launches
+    before = tracing.launches["density"]
     want = ppm.density_plain(*args)
     for kw in ({}, {"grid": grid}):
         got = ppm.density_estimate(*args, **kw)
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-    assert ppm.density_launches == before
+    assert tracing.launches["density"] == before
 
 
 def test_binned_plain_takes_no_position_of_a_photon_that_cannot_contribute():

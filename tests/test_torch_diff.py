@@ -37,6 +37,7 @@ from misaki_tpu_torch.render import driver as pdriver
 from misaki_tpu_torch.render import film as film_mod
 from misaki_tpu_torch.scene import from_compiled, grads_to_jax, leaves_from_jax
 from misaki_tpu_torch.scene.types import MC_ALPHA_U, MC_ALPHA_V, MC_ETA
+from misaki_tpu_torch.utils import tracing
 
 REL_L1 = 5e-3
 REL_L1_BITMAPS = 2e-2
@@ -510,10 +511,10 @@ def test_fetch4_gradient_matches_plain_autograd():
     grads = []
     for fn in (tf.fetch4, tf.fetch4_plain):
         tab, ww = t(table).requires_grad_(), t(w).requires_grad_()
-        before = (tf.fetch_launches, tf.fetch_bwd_launches)
+        before = (tracing.launches["fetch"], tracing.launches["fetch_bwd"])
         out = fn(tab, t(idx), ww)
         out.backward(g_out)
-        assert (tf.fetch_launches, tf.fetch_bwd_launches) == before
+        assert (tracing.launches["fetch"], tracing.launches["fetch_bwd"]) == before
         grads.append((out.detach(), tab.grad, ww.grad))
     (o1, gt1, gw1), (o2, gt2, gw2) = grads
     assert torch.equal(o1, o2)

@@ -42,6 +42,7 @@ from misaki_tpu_torch.scenes.materials import assets as materials_assets
 from misaki_tpu_torch.tools import (profile_cluster_frame, profile_ppm_density,
                                     profile_texel_fetch_levers)
 from misaki_tpu_torch.tools.tie_case import merge_clusters
+from misaki_tpu_torch.utils import tracing
 
 pytestmark = pytest.mark.cuda
 
@@ -74,9 +75,9 @@ def _compare(acc, o, d, maxt_occ, expect_hits=True):
     L = o.shape[1]
     mint = torch.full((L,), 1e-4, device="cuda")
     rays = cl.pack_rays(tuple(o), tuple(d), mint, torch.full((L,), float("inf"), device="cuda"))
-    before = cl.closest_launches
+    before = tracing.launches["closest"]
     out_k, fd_k = cl.closest_hit(rays, acc)
-    assert cl.closest_launches == before + 1
+    assert tracing.launches["closest"] == before + 1
     out_p, fd_p = cl.closest_hit_plain(rays, acc)
     same = out_k[3] == out_p[3]
     assert same.float().mean().item() >= 0.999
@@ -87,9 +88,9 @@ def _compare(acc, o, d, maxt_occ, expect_hits=True):
     assert torch.equal(out_k[0][out_p[3] < 0], out_p[0][out_p[3] < 0])
 
     srays = cl.pack_rays(tuple(o), tuple(d), mint, maxt_occ)
-    before = cl.anyhit_launches
+    before = tracing.launches["anyhit"]
     occ_k = cl.any_hit(srays, acc)
-    assert cl.anyhit_launches == before + 1
+    assert tracing.launches["anyhit"] == before + 1
     occ_p = cl.any_hit_plain(srays, acc)
     assert (occ_k == occ_p).float().mean().item() >= 0.9999
     return out_k
@@ -212,9 +213,9 @@ def _fetch_case(N, L, seed):
 @pytest.mark.parametrize("N,L", [(5000, 1 << 20), (5000, 257), (1, 1000), (1 << 23, 4096)])
 def test_fetch4_matches_plain(N, L):
     table, idx, w = _fetch_case(N, L, L)
-    before = tf.fetch_launches
+    before = tracing.launches["fetch"]
     got = tf.fetch4(table, idx, w)
-    assert tf.fetch_launches == before + 1
+    assert tracing.launches["fetch"] == before + 1
     assert torch.equal(got, tf.fetch4_plain(table, idx, w))
 
 
@@ -250,9 +251,9 @@ def small_envlit(tmp_path_factory):
 
 def _launch_equals_twin(table, idx, w):
     """One launch of the kernel, equal to the twin to the bit."""
-    before = tf.fetch_launches
+    before = tracing.launches["fetch"]
     got = tf.fetch4(table, idx, w)
-    assert tf.fetch_launches == before + 1
+    assert tracing.launches["fetch"] == before + 1
     assert torch.equal(got, tf.fetch4_plain(table, idx, w))
 
 
@@ -333,10 +334,10 @@ def test_fetch4_raises_on_misaligned_table(head):
     buf = torch.empty(3 * 100 + 4, device="cuda")
     moved = buf[head: head + 300].view(100, 3)
     moved.copy_(table)
-    before = tf.fetch_launches
+    before = tracing.launches["fetch"]
     with pytest.raises(ValueError, match="16-byte"):
         tf.fetch4(moved, idx, w)
-    assert tf.fetch_launches == before
+    assert tracing.launches["fetch"] == before
 
 
 def _backward_case(case, L=1 << 20, N=1 << 20):
@@ -387,10 +388,10 @@ def _backward_matches(idx, w, grad_out, N, exact):
     want = tf.fetch4_backward_plain(idx, w, grad_out, N)
     atol = 1e-6 * want.abs().max().item()
     for _ in range(REPEATS):
-        before = tf.fetch_bwd_launches
+        before = tracing.launches["fetch_bwd"]
         got = tf.fetch4_backward(idx, w, grad_out, N)
         torch.cuda.synchronize()
-        assert tf.fetch_bwd_launches == before + 1
+        assert tracing.launches["fetch_bwd"] == before + 1
         assert got.shape == (N, 3) and got.dtype == torch.float32 and got.is_contiguous()
         assert torch.allclose(got, want, rtol=1e-5, atol=atol)
         if exact:
@@ -488,12 +489,12 @@ def test_fetch4_backward_two_tables_in_one_pass():
     ta, ia, wa = _fetch_case(5000, 1 << 16, 8)
     tb, ib, wb = _fetch_case(70001, 1 << 16, 9)
     ta, tb = ta.requires_grad_(), tb.requires_grad_()
-    b0 = tf.fetch_bwd_launches
+    b0 = tracing.launches["fetch_bwd"]
     loss = ((tf.fetch4(ta, ia, wa) * tf.fetch4(tb, ib, wb)).sum()
             + tf.fetch4(ta, ib % 5000, wb).sum())
     loss.backward()
     torch.cuda.synchronize()
-    assert tf.fetch_bwd_launches == b0 + 3
+    assert tracing.launches["fetch_bwd"] == b0 + 3
     a2, b2 = ta.detach().clone().requires_grad_(), tb.detach().clone().requires_grad_()
     ((tf.fetch4_plain(a2, ia, wa) * tf.fetch4_plain(b2, ib, wb)).sum()
      + tf.fetch4_plain(a2, ib % 5000, wb).sum()).backward()
@@ -508,13 +509,13 @@ def test_fetch4_autograd_on_the_card():
     table, idx, w = _fetch_case(5000, 1 << 16, 3)
     table = table.requires_grad_()
     w = w.requires_grad_()
-    f0, b0 = tf.fetch_launches, tf.fetch_bwd_launches
+    f0, b0 = tracing.launches["fetch"], tracing.launches["fetch_bwd"]
     out = tf.fetch4(table, idx, w)
-    assert tf.fetch_launches == f0 + 1
+    assert tracing.launches["fetch"] == f0 + 1
     assert torch.equal(out.detach(), tf.fetch4_plain(table.detach(), idx, w.detach()))
     g_out = torch.randn_like(out)
     out.backward(g_out)
-    assert tf.fetch_bwd_launches == b0 + 1
+    assert tracing.launches["fetch_bwd"] == b0 + 1
     t2, w2 = table.detach().clone().requires_grad_(), w.detach().clone().requires_grad_()
     tf.fetch4_plain(t2, idx, w2).backward(g_out)
     assert torch.allclose(table.grad, t2.grad, rtol=1e-5, atol=1e-6 * t2.grad.abs().max().item())
@@ -529,11 +530,11 @@ def test_no_backward_launch_in_an_inference_frame(small_envlit):
     leaves = {k: v.detach().clone().requires_grad_()
               for k, v in get_leaves(small_envlit, ("bitmaps", "env_rgb")).items()}
     scene = replace_leaves(small_envlit, leaves).replace(spp=1)
-    f0, b0 = tf.fetch_launches, tf.fetch_bwd_launches
+    f0, b0 = tracing.launches["fetch"], tracing.launches["fetch_bwd"]
     driver.render(scene, depth_cap=2, progress=lambda d, t: None)
     torch.cuda.synchronize()
-    assert tf.fetch_launches > f0
-    assert tf.fetch_bwd_launches == b0
+    assert tracing.launches["fetch"] > f0
+    assert tracing.launches["fetch_bwd"] == b0
 
 
 def test_lever_profile_variants_match_plain(small_envlit, tmp_path):
@@ -606,9 +607,9 @@ def test_new_integrators_on_the_card(name, tmp_path):
     scene = load_and_compile(str(xml), spp=2, width=32, height=24, device="cpu")
     iters = 4 if name == "aov" else 0
     want = {"bunny_debug": (1, 0), "direct": (3, 2), "aov": (2 + iters, iters)}[name]
-    cl.closest_launches = cl.anyhit_launches = 0
+    tracing.reset_launches()
     a = driver.render(scene.to("cuda"), seed=3)
-    assert (cl.closest_launches, cl.anyhit_launches) == want
+    assert (tracing.launches["closest"], tracing.launches["anyhit"]) == want
     b = driver.render(scene, seed=3)
     for key in ["rgb", *b.get("aovs", {})]:
         x, y = ((o["rgb"] if key == "rgb" else o["aovs"][key]).cpu().numpy() for o in (a, b))
@@ -671,10 +672,10 @@ def test_density_kernel_matches_twin(sppm_mode):
     args = (vp, r2, ph_p, unit(P), unit(P), cuda(rs.uniform(0.0, 2.0, (4, P))),
             cuda(rs.uniform(size=P) < 0.8, torch.bool), sppm_mode)
     grid = ppm.density_grid((0.5, 0.5, 0.5), 0.5, 0.08)
-    before = ppm.density_launches
+    before = tracing.launches["density"]
     phi, count = ppm.density_estimate(*args, grid=grid)
     torch.cuda.synchronize()
-    assert ppm.density_launches == before + 1
+    assert tracing.launches["density"] == before + 1
     phi_t, count_t = ppm.density_plain(*args)
     assert torch.equal(count, count_t) and float(count.sum()) > 1000
     scale = float(phi_t.abs().max())
@@ -738,13 +739,13 @@ def test_ppm_on_the_card(integrator):
     scene = load_and_compile(str(SCENES / "cbox" / f"{integrator}.xml"), width=32, height=24,
                              device="cpu").replace(ppm_photons=4096, ppm_iterations=2)
     D, sppm = ppm.depth_budget(scene, 16), integrator == "sppm"
-    cl.closest_launches = cl.anyhit_launches = 0
-    ppm.density_launches = ppm.density_cuda_launches = 0
+    tracing.reset_launches()
     a = driver.render(scene.to("cuda"), seed=3)["rgb"].cpu().numpy()
-    assert (cl.closest_launches, cl.anyhit_launches, ppm.density_launches) == (
+    n = tracing.launches
+    assert (n["closest"], n["anyhit"], n["density"]) == (
         2 * 2 * D, 2 * D if sppm else 0, 2 * (D - 1 if sppm else D))
     # the frame's grid has 81^3 cells: three sort passes, 11 CUDA kernels
-    assert ppm.density_cuda_launches == 11 * ppm.density_launches
+    assert n["density_cuda"] == 11 * n["density"]
     b = driver.render(scene, seed=3)["rgb"].cpu().numpy()
     assert np.isfinite(a).all()
     assert abs(a.mean() - b.mean()) <= 5e-3 * b.mean()

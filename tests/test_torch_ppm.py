@@ -55,6 +55,7 @@ from misaki_tpu_torch.scene.loader import load_string
 from misaki_tpu_torch.scene.types import EM_AREA, EM_CONSTANT, EM_ENVMAP, EM_POINT
 from misaki_tpu_torch.scenes.envlit import assets as envlit_assets
 from misaki_tpu_torch.scenes.materials import assets as materials_assets
+from misaki_tpu_torch.utils import tracing
 
 CBOX = {name: SCENES / "cbox" / f"{name}.xml" for name in ("sppm", "photonmapper")}
 SMALL = dict(width=32, height=24)
@@ -352,10 +353,10 @@ def test_density_estimate(cbox, integrator):
 
     want = jppm._density_blocks(jvp, jnp.asarray(r2), j3(ph["p"]), j3(ph["wi"]), j3(ph["n"]),
                                 j3(ph["flux"]), jnp.asarray(ph["ok"]), sppm_mode)
-    before = pppm.density_launches
+    before = tracing.launches["density"]
     got = pppm.density_estimate(pvp, t(r2), p3(ph["p"]), p3(ph["wi"]), p3(ph["n"]),
                                 t(ph["flux"]), t(ph["ok"]), sppm_mode)
-    assert pppm.density_launches == before   # the CPU takes the twin
+    assert tracing.launches["density"] == before   # the CPU takes the twin
     np.testing.assert_array_equal(n(got[1]), np.asarray(want[1]))
     assert n(got[1]).sum() > 500
     scale = float(np.abs(np.asarray(want[0])).max())

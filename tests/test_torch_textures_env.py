@@ -38,6 +38,7 @@ from misaki_tpu_torch.scene import compiler as pcomp
 from misaki_tpu_torch.scene import from_compiled
 from misaki_tpu_torch.scene.types import MC_ALPHA_U, MC_REFL, N_MAT_COLS
 from misaki_tpu_torch.scenes.envlit import assets
+from misaki_tpu_torch.utils import tracing
 
 L = 257  # not a multiple of the paged kernel's 256-lane tile
 
@@ -279,9 +280,9 @@ def test_fetch4_routes_by_device():
     rs = np.random.default_rng(5)
     table = t(rs.uniform(size=(300, 3)).astype(np.float32))
     idx, w = (t(x) for x in _taps(300, rs))
-    before = tf.fetch_launches
+    before = tracing.launches["fetch"]
     assert torch.equal(tf.fetch4(table, idx, w), tf.fetch4_plain(table, idx, w))
-    assert tf.fetch_launches == before        # the CPU twin is not a launch
+    assert tracing.launches["fetch"] == before        # the CPU twin is not a launch
     with pytest.raises(ValueError, match=r"\(N, 3\)"):
         tf.fetch4(torch.cat([table, table[:, :1]], dim=1), idx, w)
     with pytest.raises(ValueError, match="device meta"):
