@@ -40,9 +40,10 @@ path integrator makes them, one more for envmap photon emission.
 """
 
 import ctypes
+import dataclasses
 import math
 import os
-from typing import NamedTuple
+from typing import Any, NamedTuple
 
 import numpy as np
 import torch
@@ -131,23 +132,53 @@ def _map_tree(fn, p):
     return fn(p) if isinstance(p, torch.Tensor) else p
 
 
-def _lane_rng(lane, mult, it, lane_offset, mix, seed):
-    """misaki_tpu's per-iteration PCG32 streams: initstate (seed * mult + it,
-    lane + lane_offset), initseq (lane ^ (it * mix), seed | 1), in uint32."""
-    return rng.seed((((seed * mult) + it) & _M32, (lane + lane_offset) & _M32),
-                    (lane ^ ((it * mix) & _M32), (seed | 1) & _M32))
+class Words(NamedTuple):
+    """An iteration's words of misaki_tpu's per-iteration PCG32 streams, each
+    in [0, 2^32): the camera and photon streams' initstate high words (seed
+    * mult + it) and the words (it * mix) their initseq high words xor the
+    lane, their shared initseq low word (seed | 1), and the wavelength
+    draw's `it` and `seed` words. Python ints on the eager path; on a graph
+    replay, (1,) int64 views of the graph's input buffer, which the same
+    torch ops broadcast to the same bits."""
+    camera_state: Any
+    camera_mix: Any
+    photon_state: Any
+    photon_mix: Any
+    seq: Any
+    it: Any
+    seed: Any
 
 
-def _camera_pass(scene, it, seed, wavelengths, budget, sppm_mode, rad):
-    """One camera sample per pixel (misaki_tpu/render/ppm.py:122-279).
-    Returns (value (4, L): emitted, environment and NEE radiance of this
-    iteration; the visible-point record {p, wi (world, toward the camera), n,
-    beta, rho, valid, glossy, mat}; primary_hit (L,) for alpha)."""
+_CAMERA_MULT, _CAMERA_MIX = 0x9E3779B9, 0x85EBCA6B
+_PHOTON_MULT, _PHOTON_MIX, _PHOTON_LANES = 0x6C078965, 0xB5297A4D, 0x400000
+
+
+def iteration_words(it, seed):
+    """The Words of iteration `it` under `seed`, as Python ints."""
+    it, seed = int(it), int(seed)
+    return Words(((seed * _CAMERA_MULT) + it) & _M32, (it * _CAMERA_MIX) & _M32,
+                 ((seed * _PHOTON_MULT) + it) & _M32, (it * _PHOTON_MIX) & _M32,
+                 (seed | 1) & _M32, it & _M32, seed & _M32)
+
+
+def _lane_rng(lane, lane_offset, state, mix, seq):
+    """misaki_tpu's per-iteration PCG32 streams: initstate (state, lane +
+    lane_offset), initseq (lane ^ mix, seq) as (high, low) uint32 words,
+    from the words of `Words`."""
+    return rng.seed((state, (lane + lane_offset) & _M32), (lane ^ mix, seq))
+
+
+def _camera_pass(scene, words, wavelengths, budget, sppm_mode, rad):
+    """One camera sample per pixel (misaki_tpu/render/ppm.py:122-279) of the
+    iteration of `words` (`Words`). Returns (value (4, L): emitted,
+    environment and NEE radiance of this iteration; the visible-point record
+    {p, wi (world, toward the camera), n, beta, rho, valid, glossy, mat};
+    primary_hit (L,) for alpha)."""
     W, H = scene.film_width, scene.film_height
     L = W * H
     dev = wavelengths.device
     lane = torch.arange(L, dtype=torch.int64, device=dev)
-    state = _lane_rng(lane, 0x9E3779B9, it, 0, 0x85EBCA6B, seed)
+    state = _lane_rng(lane, 0, words.camera_state, words.camera_mix, words.seq)
     jitter, state = rng.next_2d(state)
     px = (lane % W).to(torch.float32) + jitter[0]
     py = (lane // W).to(torch.float32) + jitter[1]
@@ -582,18 +613,20 @@ def _density_glossy(vp, radius2, ph_p, ph_sh, ph_wi_local, ph_flux, ph_ok):
         return phi, count
 
 
-def _photon_pass(scene, it, seed, wavelengths, vp, radius2, budget, sppm_mode, grid):
-    """Trace `photon_count(scene)` photons and splat each depth against the
-    visible points over `grid` (misaki_tpu/render/ppm.py:403-489); no photon
-    is stored beyond the live wavefront. Returns (phi (4, L) of the diffuse visible
-    points, phi_g (4, L) of the glossy ones, count (L,))."""
+def _photon_pass(scene, words, wavelengths, vp, radius2, budget, sppm_mode, grid):
+    """Trace `photon_count(scene)` photons of the iteration of `words` and
+    splat each depth against the visible points over `grid`
+    (misaki_tpu/render/ppm.py:403-489); no photon is stored beyond the live
+    wavefront. Returns (phi (4, L) of the diffuse visible points, phi_g (4,
+    L) of the glossy ones, count (L,))."""
     P = photon_count(scene)
     dev = radius2.device
     lane = torch.arange(P, dtype=torch.int64, device=dev)
     # the iteration's hero wavelengths, broadcast to the photon lanes
     wavelengths = wavelengths[:, :1].expand(4, P).contiguous()
     rad = emitter.radiance_all(scene, wavelengths)
-    state = _lane_rng(lane, 0x6C078965, it, 0x400000, 0xB5297A4D, seed)
+    state = _lane_rng(lane, _PHOTON_LANES, words.photon_state, words.photon_mix,
+                      words.seq)
     u_sel, state = rng.next_float32(state)
     u_pos, state = rng.next_2d(state)
     u_dir, state = rng.next_2d(state)
@@ -655,16 +688,25 @@ def ppm_iteration(scene, st, it, seed, budget, sppm_mode, grid=None):
     photonmapper keeps its radius. Returns the new state."""
     if grid is None:
         grid = scene_grid(scene, initial_radius(scene))
+    return _iteration(scene, st, iteration_words(it, seed), budget, sppm_mode, grid)
+
+
+def _iteration(scene, st, words, budget, sppm_mode, grid):
+    """`ppm_iteration` of the iteration of `words` (`Words`). With words of
+    (1,) int64 tensors no shape or launch argument depends on the iteration
+    or the seed, so one capture of it serves every iteration."""
+    tracing.add(tracing.PPM_ITERATIONS, 1)
     L = st["radius"].shape[0]
     dev = st["radius"].device
-    u_wav, _ = rng.next_float32(rng.seed(
-        (0xA511E9B3, torch.full((1,), it, dtype=torch.int64, device=dev)), (seed & _M32, 7)))
+    it = words.it if isinstance(words.it, torch.Tensor) else torch.full(
+        (1,), words.it, dtype=torch.int64, device=dev)
+    u_wav, _ = rng.next_float32(rng.seed((0xA511E9B3, it), (words.seed, 7)))
     wavelengths, wav_weight = spec.sample_wavelength(u_wav.expand(L))
     rad = emitter.radiance_all(scene, wavelengths)
 
-    value, vp, primary_hit = _camera_pass(scene, it, seed, wavelengths, budget, sppm_mode, rad)
+    value, vp, primary_hit = _camera_pass(scene, words, wavelengths, budget, sppm_mode, rad)
     radius2 = st["radius"] * st["radius"]
-    phi, phi_g, mcount = _photon_pass(scene, it, seed, wavelengths, vp, radius2, budget,
+    phi, phi_g, mcount = _photon_pass(scene, words, wavelengths, vp, radius2, budget,
                                       sppm_mode, grid)
 
     # the visible point's factors: rho / pi and the path throughput for the
@@ -691,6 +733,120 @@ def ppm_iteration(scene, st, it, seed, budget, sppm_mode, grid=None):
     return st
 
 
+def _initial_state(L, r0, device, out=None):
+    """The per-pixel state before the first iteration: new tensors, or
+    written in place into `out` (a captured graph's state)."""
+    if out is None:
+        return {"value": torch.zeros((3, L), device=device),
+                "tau": torch.zeros((3, L), device=device), "n": torch.zeros(L, device=device),
+                "radius": torch.full((L,), r0, dtype=torch.float32, device=device),
+                "alpha": torch.zeros(L, device=device), "iters": torch.zeros((), device=device)}
+    for k, v in out.items():
+        v.fill_(r0 if k == "radius" else 0.0)
+    return out
+
+
+def _develop(scene, st, iters):
+    """The frame of the per-pixel state `st` after `iters` iterations:
+    {"film": None, "rgb" (H, W, 3), "alpha" (H, W)}."""
+    W, H = scene.film_width, scene.film_height
+    Np = float(iters) * float(photon_count(scene))
+    r2 = st["radius"] * st["radius"]
+    xyz = st["value"] / float(iters) + st["tau"] / (Np * m.Pi * r2)[None, :]
+    rgb = spec.xyz_to_srgb_image(xyz.T.reshape(H, W, 3))
+    alpha = (st["alpha"] / float(iters)).reshape(H, W)
+    return {"film": None, "rgb": torch.clamp(rgb, min=0.0), "alpha": alpha}
+
+
+# ---------------------------------------------------------------------------
+# the iteration as a CUDA graph
+# ---------------------------------------------------------------------------
+
+_GRAPH_ATTR = "_ppm_graph"   # a scene's captured iteration, in the scene's __dict__
+
+
+def graph_eligible(device, bsdf_kinds, sppm_mode):
+    """Whether `render_ppm` replays its iterations as a CUDA graph: on a CUDA
+    device, where no shape depends on the data. Glossy visible points (sppm
+    with a glossy BSDF kind, as `_camera_pass` decides) are gathered by
+    `nonzero` in `_density_glossy`, so those iterations run eagerly, as
+    every CPU iteration does."""
+    return torch.device(device).type == "cuda" and not (sppm_mode and _has_glossy(bsdf_kinds))
+
+
+def _table_key(x, out):
+    """Append (data_ptr, shape) of every tensor of a scene's tables to
+    `out`: a table replaced in place of another changes it."""
+    if isinstance(x, torch.Tensor):
+        out.append((x.data_ptr(), tuple(x.shape)))
+    elif dataclasses.is_dataclass(x):
+        for f in dataclasses.fields(x):
+            _table_key(getattr(x, f.name), out)
+    return out
+
+
+class _Graph(NamedTuple):
+    """One captured iteration of a scene under `key` (device, budget, mode,
+    grid, L, P and the scene's tables): it reads the `Words` from `inputs`
+    and the per-pixel state `st`, and writes `st` in place. `inputs` holds
+    the words, then the graph's own device counters, which each replay's
+    input row zeroes; `rec` is what its Python added
+    (`tracing.Recording`)."""
+    key: tuple
+    graph: Any
+    st: dict
+    inputs: Any
+    rec: Any
+
+    def replay(self, row):
+        """Run the iteration of input row `row` (a row of `_input_rows`)."""
+        self.inputs.copy_(row)
+        self.graph.replay()
+        tracing.replayed(self.rec)
+
+
+def _cached_graph(scene, key):
+    """The scene's captured iteration if it was captured under `key`; one
+    under another key is dropped, so a scene holds at most one graph and
+    its memory pool."""
+    graph = scene.__dict__.get(_GRAPH_ATTR)
+    if graph is not None and graph.key != key:
+        del scene.__dict__[_GRAPH_ATTR]
+        graph = None
+    return graph
+
+
+def _capture(scene, key, st, budget, sppm_mode, grid):
+    """Capture one iteration of `scene` as a CUDA graph whose state is `st`
+    (its tensors become the graph's), cache it with the scene and return
+    it. Called after an eager iteration of the scene, so that the kernels
+    are built, their settings made and the device tables cached."""
+    n = len(Words._fields)
+    inputs = torch.zeros(n + len(tracing.DEVICE_COUNTERS), dtype=torch.int64,
+                         device=st["radius"].device)
+    words = Words(*(inputs[i:i + 1] for i in range(n)))
+    cuda_graph = torch.cuda.CUDAGraph()
+    with tracing.recording(inputs[n:]) as rec, \
+            torch.cuda.graph(cuda_graph, capture_error_mode="thread_local"):
+        new = _iteration(scene, st, words, budget, sppm_mode, grid)
+        for k, v in new.items():
+            if v is not st[k]:
+                st[k].copy_(v)
+        tracing.add(tracing.PPM_REPLAYS, 1)
+    graph = _Graph(key, cuda_graph, st, inputs, rec)
+    scene.__dict__[_GRAPH_ATTR] = graph
+    return graph
+
+
+def _input_rows(seed, iters, device):
+    """Each iteration's input row under `seed`: its `Words` and zeroed
+    counter slots, an (iters, n) int64 table on `device`, copied once from
+    pinned memory without waiting on the device."""
+    zeros = (0,) * len(tracing.DEVICE_COUNTERS)
+    rows = [(*iteration_words(it, seed), *zeros) for it in range(iters)]
+    return torch.tensor(rows, dtype=torch.int64).pin_memory().to(device, non_blocking=True)
+
+
 def ppm_fingerprint(scene, seed, budget):
     """Checkpoint compatibility of a photon-mapping render
     (misaki_tpu/render/ppm.py:550-558): iterations resume at a whole
@@ -707,14 +863,19 @@ def render_ppm(scene, seed=0, depth_cap=16, checkpoint_path=None, checkpoint_eve
     3), "alpha" (H, W)}: the per-pixel state bypasses the reconstruction
     filter, as the reference box-accumulates its pixels (sppm.cpp:320-341).
 
+    Where `graph_eligible`, the first iteration a scene renders runs eagerly
+    and is then captured as a CUDA graph, which every later iteration of
+    the scene replays (`_Graph`): the same kernels in the same order, so the
+    frame is the eager one to the bit. Such a scene renders one frame at a
+    time. Elsewhere every iteration runs eagerly.
+
     checkpoint_path / checkpoint_every / progress work per iteration: the
     whole per-pixel state is saved every `checkpoint_every` iterations and a
     compatible snapshot resumed from (each iteration's streams derive from
     (it, seed), so the finished image is the uninterrupted one to the bit);
     progress(done_iterations, iterations) after each iteration."""
     with tracing.span(tracing.FRAME):
-        W, H = scene.film_width, scene.film_height
-        L = W * H
+        L = scene.film_width * scene.film_height
         dev = scene.device
         sppm_mode = scene.integrator == "sppm"
         budget = depth_budget(scene, depth_cap)
@@ -722,18 +883,21 @@ def render_ppm(scene, seed=0, depth_cap=16, checkpoint_path=None, checkpoint_eve
         r0 = initial_radius(scene)
         # the density grid, made once a frame: no estimate waits on the host
         grid = scene_grid(scene, r0)
+        key = None
+        if graph_eligible(dev, scene.bsdf_kinds, sppm_mode):
+            key = (dev, budget, sppm_mode, grid, L, photon_count(scene),
+                   tuple(_table_key(scene, [])))
 
         with torch.inference_mode():
-            st = {"value": torch.zeros((3, L), device=dev), "tau": torch.zeros((3, L), device=dev),
-                  "n": torch.zeros(L, device=dev),
-                  "radius": torch.full((L,), r0, dtype=torch.float32, device=dev),
-                  "alpha": torch.zeros(L, device=dev), "iters": torch.zeros((), device=dev)}
+            graph = None if key is None else _cached_graph(scene, key)
+            st = _initial_state(L, r0, dev, None if graph is None else graph.st)
             start = 0
             fingerprint = ppm_fingerprint(scene, seed, budget)
             if checkpoint_path is not None and os.path.exists(checkpoint_path):
                 with np.load(checkpoint_path, allow_pickle=False) as data:
                     if str(data["fingerprint"]) == fingerprint:
-                        st = {k: torch.from_numpy(data[k]).to(dev) for k in st}
+                        for k, v in st.items():
+                            v.copy_(torch.from_numpy(data[k]))
                         start = int(data["next_it"])
                         get_logger().info("resuming %s from %s at iteration %d/%d",
                                           scene.integrator, checkpoint_path, start, iters)
@@ -742,8 +906,16 @@ def render_ppm(scene, seed=0, depth_cap=16, checkpoint_path=None, checkpoint_eve
                             "checkpoint %s does not match this render (have %r, want %r): starting "
                             "fresh", checkpoint_path, str(data["fingerprint"]), fingerprint)
 
+            rows = None
             for it in range(start, iters):
-                st = ppm_iteration(scene, st, it, int(seed), budget, sppm_mode, grid)
+                if graph is None:
+                    st = ppm_iteration(scene, st, it, int(seed), budget, sppm_mode, grid)
+                    if key is not None:
+                        graph = _capture(scene, key, st, budget, sppm_mode, grid)
+                else:
+                    if rows is None:
+                        rows = _input_rows(seed, iters, dev)
+                    graph.replay(rows[it])
                 if progress is not None:
                     progress(it + 1, iters)
                 if (checkpoint_path is not None and checkpoint_every > 0
@@ -752,13 +924,7 @@ def render_ppm(scene, seed=0, depth_cap=16, checkpoint_path=None, checkpoint_eve
                     np.savez(tmp, fingerprint=np.array(fingerprint), next_it=np.int64(it + 1),
                              **{k: v.cpu().numpy() for k, v in st.items()})
                     os.replace(tmp, checkpoint_path)
-
-            Np = float(iters) * float(photon_count(scene))
-            r2 = st["radius"] * st["radius"]
-            xyz = st["value"] / float(iters) + st["tau"] / (Np * m.Pi * r2)[None, :]
-            rgb = spec.xyz_to_srgb_image(xyz.T.reshape(H, W, 3))
-            alpha = (st["alpha"] / float(iters)).reshape(H, W)
-            out = {"film": None, "rgb": torch.clamp(rgb, min=0.0), "alpha": alpha}
+            out = _develop(scene, st, iters)
         if checkpoint_path is not None and os.path.exists(checkpoint_path):
             os.remove(checkpoint_path)  # completed: the snapshot is stale
         return out

@@ -53,6 +53,17 @@ Counters:
   density.contributing    device: photons alive with wi . n > 0
   density.live            device: visible points valid and not glossy (the
                           gather), each once
+  ppm.iterations          host: photon-mapping iterations, eager or replayed
+  ppm.graph.replays       host: the iterations that ran as a replay of a
+                          captured CUDA graph (`render/ppm.py`)
+
+A CUDA graph runs no Python, so what the Python of its one captured
+iteration adds is recorded: under `recording(slots)` the host counts and the
+launches go to the `Recording`, not to the session or `launches`, and the
+kernels add to the graph's own device counters `slots` (zeroed by whoever
+replays the graph, before each replay). `replayed(rec)`, after each replay,
+adds the recorded launches to `launches` and, while tracing is on, the
+recorded host counts and the graph's device counters to the session.
 
 `launches` is always on, and not zeroed by a session: the launches of each
 hand-written kernel in the process ("closest", "anyhit", "fetch",
@@ -77,8 +88,10 @@ DENSITY_VPS = "density.visible_points"
 DENSITY_ALIVE = "density.alive"
 DENSITY_CONTRIBUTING = "density.contributing"
 DENSITY_LIVE = "density.live"
+PPM_ITERATIONS = "ppm.iterations"
+PPM_REPLAYS = "ppm.graph.replays"
 
-HOST_COUNTERS = (CAST_RAYS, DENSITY_PHOTONS, DENSITY_VPS)
+HOST_COUNTERS = (CAST_RAYS, DENSITY_PHOTONS, DENSITY_VPS, PPM_ITERATIONS, PPM_REPLAYS)
 # the device buffer's slots, in this order; the density kernel takes the
 # address of DENSITY_ALIVE and writes that slot and the next two
 DEVICE_COUNTERS = (CAST_LIVE, DENSITY_ALIVE, DENSITY_CONTRIBUTING, DENSITY_LIVE)
@@ -101,6 +114,20 @@ class _Session:
 
 
 _session = _Session()
+
+
+class Recording:
+    """What the Python of one captured CUDA graph adds, replayed with it:
+    `host` counts, `launches`, and `slots`, the graph's own device counters
+    (an int64 tensor of len(DEVICE_COUNTERS) on the graph's device)."""
+
+    def __init__(self, slots):
+        self.slots = slots
+        self.host = dict.fromkeys(COUNTERS, 0)
+        self.launches = dict.fromkeys(launches, 0)
+
+
+_recording = None
 
 
 def enabled():
@@ -126,21 +153,67 @@ def span(name):
 
 def add(name, n):
     """Add `n` (an int, or a CPU tensor that holds one) to counter `name`,
-    while tracing is on."""
-    if enabled():
+    while tracing is on; while recording, to the recording."""
+    if _recording is not None:
+        _recording.host[name] += int(n)
+    elif enabled():
         _session.host[name] += int(n)
 
 
-def device_counter(device, name):
-    """The address of device counter `name` on `device` for a kernel to add
-    to, or None while tracing is off (the kernel then counts nothing)."""
-    if not enabled():
-        return None
+def _buffer(device):
+    """The session's device counters on `device`, allocated at first use."""
     buf = _session.buffers.get(device)
     if buf is None:
         buf = torch.zeros(len(DEVICE_COUNTERS), dtype=torch.int64, device=device)
         _session.buffers[device] = buf
+    return buf
+
+
+def _address(buf, name):
     return buf.data_ptr() + buf.element_size() * DEVICE_COUNTERS.index(name)
+
+
+def device_counter(device, name):
+    """The address of device counter `name` on `device` for a kernel to add
+    to, or None while tracing is off (the kernel then counts nothing); while
+    recording, the address of the recording's slot, traced or not."""
+    if _recording is not None:
+        return _address(_recording.slots, name)
+    if not enabled():
+        return None
+    return _address(_buffer(device), name)
+
+
+@contextlib.contextmanager
+def recording(slots):
+    """Record, for a CUDA graph captured inside, what its Python adds: the
+    host counts and launches go to the yielded `Recording`, and the kernels
+    count into `slots` (see `Recording`)."""
+    global _recording
+    if _recording is not None:
+        raise RuntimeError("a recording is already open")
+    rec = Recording(slots)
+    before = dict(launches)
+    _recording = rec
+    try:
+        yield rec
+    finally:
+        _recording = None
+        for k in launches:
+            rec.launches[k] = launches[k] - before[k]
+            launches[k] = before[k]
+
+
+def replayed(rec):
+    """Count one replay of the graph recorded in `rec`: its launches, and
+    while tracing is on its host counts and its device counters (one add on
+    the device). Looks at the profiler once."""
+    for k, v in rec.launches.items():
+        launches[k] += v
+    if enabled():
+        for k, v in rec.host.items():
+            _session.host[k] += v
+        _buffer(rec.slots.device).add_(rec.slots)
 
 
 def read():

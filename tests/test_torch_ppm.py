@@ -52,7 +52,8 @@ from misaki_tpu_torch.scene import from_compiled
 from misaki_tpu_torch.scene.compiler import compile_scene
 from misaki_tpu_torch.scene.compiler import load_and_compile as pload
 from misaki_tpu_torch.scene.loader import load_string
-from misaki_tpu_torch.scene.types import EM_AREA, EM_CONSTANT, EM_ENVMAP, EM_POINT
+from misaki_tpu_torch.scene.types import (BSDF_DIFFUSE, BSDF_PLASTIC, BSDF_ROUGH_CONDUCTOR,
+                                          EM_AREA, EM_CONSTANT, EM_ENVMAP, EM_POINT)
 from misaki_tpu_torch.scenes.envlit import assets as envlit_assets
 from misaki_tpu_torch.scenes.materials import assets as materials_assets
 from misaki_tpu_torch.utils import tracing
@@ -274,7 +275,8 @@ def _camera_both(js, ps, sppm_mode, it=1):
     want = jppm._camera_pass(js, jnp.uint32(it), jnp.uint32(SEED), jw, jww, budget, sppm_mode,
                              jem.radiance_all(js, jw))
     pw = t(np.asarray(jw))
-    got = pppm._camera_pass(ps, it, SEED, pw, budget, sppm_mode, pem.radiance_all(ps, pw))
+    got = pppm._camera_pass(ps, pppm.iteration_words(it, SEED), pw, budget, sppm_mode,
+                            pem.radiance_all(ps, pw))
     return want, got
 
 
@@ -488,3 +490,148 @@ def test_cli_renders_photonmapper(tmp_path):
     for i, c in enumerate("RGB"):
         np.testing.assert_array_equal(got[c], n(want["rgb"])[..., i])
     np.testing.assert_array_equal(got["A"], n(want["alpha"]))
+
+
+# ---------------------------------------------------------------------------
+# the iteration's words as tensors (a CUDA graph's inputs), the graph's rule
+# ---------------------------------------------------------------------------
+
+WORD_ITS = (0, 1, 7)
+WORD_SEEDS = (SEED, (1 << 31) + 12345)
+
+
+def _tensor_words(it, seed):
+    """The Words of (it, seed) as (1,) int64 views of one buffer, as a
+    captured graph reads them."""
+    buf = torch.tensor(pppm.iteration_words(it, seed), dtype=torch.int64)
+    return pppm.Words(*(buf[i:i + 1] for i in range(len(pppm.Words._fields))))
+
+
+def _equal_tree(a, b):
+    if isinstance(a, dict):
+        assert a.keys() == b.keys()
+        for k in a:
+            _equal_tree(a[k], b[k])
+    elif isinstance(a, (tuple, list)):
+        assert len(a) == len(b)
+        for x, y in zip(a, b):
+            _equal_tree(x, y)
+    elif isinstance(a, torch.Tensor):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    else:
+        assert a == b
+
+
+@pytest.mark.parametrize("seed", WORD_SEEDS)
+@pytest.mark.parametrize("it", WORD_ITS)
+def test_lane_rng_takes_tensor_words(it, seed):
+    """Both streams seeded from the words as tensors equal the int form's
+    to the bit, and so do the draws that follow. (A word as a tensor keeps
+    the increment's low word (1,), where the int form fills it a lane.)"""
+    lane = torch.arange(1000, dtype=torch.int64)
+    ints, tens = pppm.iteration_words(it, seed), _tensor_words(it, seed)
+    for offset, state, mix in ((0, "camera_state", "camera_mix"),
+                               (pppm._PHOTON_LANES, "photon_state", "photon_mix")):
+        a = pppm._lane_rng(lane, offset, getattr(ints, state), getattr(ints, mix), ints.seq)
+        b = pppm._lane_rng(lane, offset, getattr(tens, state), getattr(tens, mix), tens.seq)
+        assert a.keys() == b.keys()
+        for k in a:
+            assert torch.equal(a[k], b[k].expand_as(a[k])), k
+        for _ in range(3):
+            (x, a), (y, b) = prng.next_float32(a), prng.next_float32(b)
+            _equal_tree(x, y)
+
+
+def test_iteration_words_are_misaki_tpus_expressions():
+    """The words are the 32-bit expressions misaki_tpu's streams take, for
+    a seed past 2^31 too."""
+    for it in WORD_ITS:
+        for seed in WORD_SEEDS:
+            w = pppm.iteration_words(it, seed)
+            assert w == ((seed * 0x9E3779B9 + it) & 0xFFFFFFFF, (it * 0x85EBCA6B) & 0xFFFFFFFF,
+                         (seed * 0x6C078965 + it) & 0xFFFFFFFF, (it * 0xB5297A4D) & 0xFFFFFFFF,
+                         (seed | 1) & 0xFFFFFFFF, it, seed & 0xFFFFFFFF)
+            assert all(0 <= x < (1 << 32) for x in w)
+
+
+def _wavelengths_port(ps, it, seed):
+    L = ps.film_width * ps.film_height
+    u, _ = prng.next_float32(prng.seed((0xA511E9B3, torch.full((1,), it, dtype=torch.int64)),
+                                       (seed & 0xFFFFFFFF, 7)))
+    return pspec.sample_wavelength(u.expand(L))[0]
+
+
+@pytest.mark.parametrize("seed", WORD_SEEDS)
+@pytest.mark.parametrize("it", WORD_ITS)
+@pytest.mark.parametrize("integrator", ["sppm", "photonmapper"])
+def test_camera_pass_takes_tensor_words(cbox, integrator, it, seed):
+    ps = cbox[integrator][1]
+    pw = _wavelengths_port(ps, it, seed)
+    args = (pw, pppm.depth_budget(ps, 16), integrator == "sppm", pem.radiance_all(ps, pw))
+    _equal_tree(pppm._camera_pass(ps, pppm.iteration_words(it, seed), *args),
+                pppm._camera_pass(ps, _tensor_words(it, seed), *args))
+
+
+@pytest.mark.parametrize("seed", WORD_SEEDS)
+@pytest.mark.parametrize("it", WORD_ITS)
+@pytest.mark.parametrize("integrator", ["sppm", "photonmapper"])
+def test_photon_pass_takes_tensor_words(cbox, integrator, it, seed):
+    ps = cbox[integrator][1]
+    sppm_mode, budget = integrator == "sppm", pppm.depth_budget(ps, 16)
+    pw = _wavelengths_port(ps, it, seed)
+    words = pppm.iteration_words(it, seed)
+    _, vp, _ = pppm._camera_pass(ps, words, pw, budget, sppm_mode, pem.radiance_all(ps, pw))
+    r0 = pppm.initial_radius(ps)
+    radius2 = torch.full((ps.film_width * ps.film_height,), r0 * r0)
+    args = (pw, vp, radius2, budget, sppm_mode, pppm.scene_grid(ps, r0))
+    want = pppm._photon_pass(ps, words, *args)
+    got = pppm._photon_pass(ps, _tensor_words(it, seed), *args)
+    _equal_tree(want, got)
+    assert float(want[2].sum()) > 0.0
+
+
+@pytest.mark.parametrize("seed", WORD_SEEDS)
+@pytest.mark.parametrize("it", WORD_ITS)
+@pytest.mark.parametrize("integrator", ["sppm", "photonmapper"])
+def test_iteration_takes_tensor_words(cbox, integrator, it, seed):
+    """A whole iteration from a state after some counts: ppm_iteration (the
+    int words) and the iteration a graph captures (the words as tensors)
+    give the same state to the bit."""
+    ps = cbox[integrator][1]
+    L = ps.film_width * ps.film_height
+    st = {k: t(v) for k, v in _state(L, pppm.initial_radius(ps)).items()}
+    st["n"] = torch.linspace(0.0, 4.0, L)
+    sppm_mode, budget = integrator == "sppm", pppm.depth_budget(ps, 16)
+    grid = pppm.scene_grid(ps, pppm.initial_radius(ps))
+    want = pppm.ppm_iteration(ps, st, it, seed, budget, sppm_mode, grid)
+    got = pppm._iteration(ps, st, _tensor_words(it, seed), budget, sppm_mode, grid)
+    _equal_tree(want, got)
+    assert float(want["tau"].max()) > 0.0
+
+
+def test_graph_rule_follows_the_device_and_the_bsdf_kinds(cbox, extra_scenes):
+    """A CUDA graph engages on a CUDA device where no visible point is
+    glossy; the CPU, and sppm with a glossy BSDF kind, stay eager. Decided
+    from the device's type and the scene's kinds, with no card needed."""
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    for integrator, (_, ps) in cbox.items():
+        assert pppm.graph_eligible(cuda, ps.bsdf_kinds, integrator == "sppm")
+        assert not pppm.graph_eligible(cpu, ps.bsdf_kinds, integrator == "sppm")
+        assert not pppm.graph_eligible(ps.device, ps.bsdf_kinds, integrator == "sppm")
+    assert pppm.graph_eligible("cuda", (BSDF_DIFFUSE, BSDF_PLASTIC), True)
+    assert not pppm.graph_eligible("cuda", (BSDF_DIFFUSE, BSDF_ROUGH_CONDUCTOR), True)
+    # the photonmapper parks no glossy visible point
+    assert pppm.graph_eligible("cuda", (BSDF_DIFFUSE, BSDF_ROUGH_CONDUCTOR), False)
+    gallery = extra_scenes["gallery"][1]
+    assert not pppm.graph_eligible(cuda, gallery.bsdf_kinds, True)
+    assert pppm.graph_eligible(cuda, extra_scenes["envlit"][1].bsdf_kinds, True)
+
+
+def test_cpu_frames_stay_eager(cbox):
+    """A CPU frame captures nothing and counts every iteration as eager."""
+    ps = cbox["sppm"][1]
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        pdriver.render(ps, seed=SEED)
+        c = tracing.read()
+    assert "_ppm_graph" not in ps.__dict__
+    assert (c[tracing.PPM_ITERATIONS], c[tracing.PPM_REPLAYS]) == (ps.ppm_iterations, 0)

@@ -199,6 +199,62 @@ def test_the_benchmark_reads_the_spans_it_names():
 
 
 # ---------------------------------------------------------------------------
+# recording a CUDA graph's Python, and its replays
+# ---------------------------------------------------------------------------
+
+def test_a_recording_takes_the_counts_and_launches_of_its_capture():
+    """Under `recording(slots)`: host counts and launches go to the
+    recording, not to the session or `launches`, and the kernels get the
+    slots' addresses, traced or not; one recording at a time."""
+    slots = torch.zeros(len(tracing.DEVICE_COUNTERS), dtype=torch.int64)
+    launched, before = dict(tracing.launches), tracing.read()
+    with tracing.recording(slots) as rec:
+        tracing.add(tracing.CAST_RAYS, 100)
+        tracing.add(tracing.PPM_ITERATIONS, 1)
+        tracing.launches["closest"] += 3
+        tracing.launches["density"] += 1
+        addr = {name: tracing.device_counter(torch.device("cpu"), name)
+                for name in tracing.DEVICE_COUNTERS}
+        with pytest.raises(RuntimeError, match="already open"):
+            with tracing.recording(slots):
+                pass
+    assert tracing.launches == launched and tracing.read() == before
+    assert addr == {name: slots.data_ptr() + 8 * i
+                    for i, name in enumerate(tracing.DEVICE_COUNTERS)}
+    assert {k: v for k, v in rec.host.items() if v} == {tracing.CAST_RAYS: 100,
+                                                       tracing.PPM_ITERATIONS: 1}
+    assert {k: v for k, v in rec.launches.items() if v} == {"closest": 3, "density": 1}
+    assert tracing.device_counter(torch.device("cpu"), tracing.CAST_LIVE) is None
+
+
+def test_a_replay_counts_what_its_capture_recorded(monkeypatch, tmp_path):
+    """`replayed`: untraced, the recorded launches alone, after one look at
+    the profiler; traced, the recorded host counts and the graph's device
+    counters besides, each replay."""
+    slots = torch.zeros(len(tracing.DEVICE_COUNTERS), dtype=torch.int64)
+    with tracing.recording(slots) as rec:
+        tracing.add(tracing.DENSITY_PHOTONS, 2048)
+        tracing.add(tracing.PPM_REPLAYS, 1)
+        tracing.launches["density"] += 4
+    slots[:] = torch.tensor([5, 6, 7, 8])
+    launched, before = dict(tracing.launches), tracing.read()
+    looks = []
+    real = tracing._profiler_enabled
+    monkeypatch.setattr(tracing, "_profiler_enabled", lambda: looks.append(1) or real())
+    tracing.replayed(rec)
+    assert len(looks) == 1
+    assert tracing.launches == {**launched, "density": launched["density"] + 4}
+    assert tracing.read() == before
+    monkeypatch.setattr(tracing, "_profiler_enabled", real)
+    _, _, c = traced(lambda: (tracing.replayed(rec), tracing.replayed(rec)), tmp_path)
+    assert {k: v for k, v in c.items() if v} == {
+        tracing.DENSITY_PHOTONS: 4096, tracing.PPM_REPLAYS: 2, tracing.CAST_LIVE: 10,
+        tracing.DENSITY_ALIVE: 12, tracing.DENSITY_CONTRIBUTING: 14, tracing.DENSITY_LIVE: 16}
+    assert tracing.launches["density"] == launched["density"] + 12
+    tracing.launches.update(launched)
+
+
+# ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
 
