@@ -6,7 +6,10 @@ Loads a Mitsuba-style scene, renders it on the chosen device and writes an
 EXR or a PNG, by the output's extension (default: the scene's name, .exr for
 an hdrfilm and .png for an rgbfilm). The `aov` integrator also writes one
 `<stem>_<name>.exr` per variable. `--device cuda` (the default) needs a GPU
-and fails without one; `--device cpu` renders on the CPU.
+and fails without one; `--device cpu` renders on the CPU. `--ranks N`
+renders a path, direct, volpath or debug frame over N ranks
+(`parallel/sharding.py` `ShardedRenderer`): N cards over NCCL, or N
+processes over gloo with `--device cpu`.
 """
 
 import argparse
@@ -37,6 +40,9 @@ def main(argv=None):
                    help="snapshot every N lane chunks, or N iterations of sppm and "
                         "photonmapper (default 8)")
     p.add_argument("--device", default="cuda", help="torch device (cuda or cpu)")
+    p.add_argument("--ranks", type=int, default=1, metavar="N",
+                   help="render over N ranks: one card each over NCCL, or with --device cpu "
+                        "N processes over gloo (path, direct, volpath and debug)")
     args = p.parse_args(argv)
 
     import numpy as np
@@ -52,6 +58,9 @@ def main(argv=None):
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         print("error: --device cuda but no CUDA device is available", file=sys.stderr)
+        return 2
+    if args.ranks > 1 and args.checkpoint is not None:
+        print("error: --checkpoint renders on one rank; drop it or --ranks", file=sys.stderr)
         return 2
     params = dict(kv.split("=", 1) for kv in args.define)
     for d in args.include_dir:
@@ -71,8 +80,16 @@ def main(argv=None):
     else:
         log.info("Starting render job (%dx%d, %d samples) on %s", scene.film_width,
                  scene.film_height, scene.spp, device)
-    out = render(scene, seed=args.seed, chunk_size=1 << args.chunk_log2, depth_cap=args.depth,
-                 checkpoint_path=args.checkpoint, checkpoint_every=args.checkpoint_every)
+    if args.ranks > 1:
+        from misaki_tpu_torch.parallel.sharding import ShardedRenderer
+
+        with ShardedRenderer(scene, args.ranks, device=device) as group:
+            out = group.render(seed=args.seed, chunk_size=1 << args.chunk_log2,
+                               depth_cap=args.depth)
+    else:
+        out = render(scene, seed=args.seed, chunk_size=1 << args.chunk_log2,
+                     depth_cap=args.depth, checkpoint_path=args.checkpoint,
+                     checkpoint_every=args.checkpoint_every)
     rgb, alpha = out["rgb"].cpu(), out["alpha"].cpu()
     log.info("Rendering finished. (took %s)", t)
 

@@ -96,6 +96,13 @@ def compile_sources(srcs):
     return paths
 
 
+def compile_all():
+    """`compile_sources` of every source in `csrc`: for a process that
+    starts others, which then load the libraries they use without each
+    running nvcc."""
+    return compile_sources(sorted(CSRC.glob("*.cu")))
+
+
 def load_library(src, signatures):
     """Build (if needed) and load the library of `src`, declaring each
     function of `signatures` = {name: (argtypes, restype)}. Loaded once per

@@ -36,6 +36,8 @@ Spans, one a layer boundary:
                   `ray_test`): the rays' packing, the launch, the unpacking
   misaki.density  a density estimate (`ppm.density_estimate`,
                   `_density_glossy`): packing, workspace and launches
+  misaki.film_sum the sum of a rank's film over the ranks
+                  (`parallel/sharding.py` `mesh_sum` in a sharded frame)
 
 On a frame's host thread casts and estimates lie in bounce spans or directly
 in the frame, so the frame's time splits into entry (the frame outside any
@@ -56,6 +58,10 @@ Counters:
   ppm.iterations          host: photon-mapping iterations, eager or replayed
   ppm.graph.replays       host: the iterations that ran as a replay of a
                           captured CUDA graph (`render/ppm.py`)
+  shard.ranks             host: the ranks of each sharded frame
+  shard.lanes             host: this rank's lanes of each sharded frame
+  shard.film_sum.bytes    host: the bytes each all-reduce of a sharded
+                          frame's film sums
 
 A CUDA graph runs no Python, so what the Python of its one captured
 iteration adds is recorded: under `recording(slots)` the host counts and the
@@ -80,6 +86,7 @@ CHUNK = "misaki.chunk"
 BOUNCE = "misaki.bounce"
 CAST = "misaki.cast"
 DENSITY = "misaki.density"
+FILM_SUM = "misaki.film_sum"
 
 CAST_RAYS = "cast.closest.rays"
 CAST_LIVE = "cast.closest.live"
@@ -90,8 +97,12 @@ DENSITY_CONTRIBUTING = "density.contributing"
 DENSITY_LIVE = "density.live"
 PPM_ITERATIONS = "ppm.iterations"
 PPM_REPLAYS = "ppm.graph.replays"
+SHARD_RANKS = "shard.ranks"
+SHARD_LANES = "shard.lanes"
+SHARD_FILM_SUM_BYTES = "shard.film_sum.bytes"
 
-HOST_COUNTERS = (CAST_RAYS, DENSITY_PHOTONS, DENSITY_VPS, PPM_ITERATIONS, PPM_REPLAYS)
+HOST_COUNTERS = (CAST_RAYS, DENSITY_PHOTONS, DENSITY_VPS, PPM_ITERATIONS, PPM_REPLAYS,
+                 SHARD_RANKS, SHARD_LANES, SHARD_FILM_SUM_BYTES)
 # the device buffer's slots, in this order; the density kernel takes the
 # address of DENSITY_ALIVE and writes that slot and the next two
 DEVICE_COUNTERS = (CAST_LIVE, DENSITY_ALIVE, DENSITY_CONTRIBUTING, DENSITY_LIVE)
