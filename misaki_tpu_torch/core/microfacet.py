@@ -78,7 +78,10 @@ def smith_g1(v, mv, alpha_u, alpha_v, distr_type=GGX):
     a_sqr = a * a
     g_b = torch.where(a >= 1.6, 1.0,
                       (3.535 * a + 2.181 * a_sqr) / (1.0 + 2.276 * a + 2.577 * a_sqr))
-    g = torch.where(torch.as_tensor(distr_type, device=vz.device) == GGX, g_ggx, g_b)
+    if isinstance(distr_type, torch.Tensor):
+        g = torch.where(distr_type == GGX, g_ggx, g_b)
+    else:   # a Python int: no tensor made from it, whose copy would wait on the device
+        g = g_ggx if distr_type == GGX else g_b
     g = torch.where(xy_alpha_2 == 0.0, 1.0, g)
     return torch.where(vec.dot(v, mv) * vz <= 0.0, 0.0, g)
 

@@ -47,9 +47,6 @@ from misaki_tpu_torch.scene.compiler import target_device
 from misaki_tpu_torch.utils import cuda_build, tracing
 from misaki_tpu_torch.utils.logging import synced_clock
 
-# the integrators whose 5-channel film misaki_tpu's `_render_chunk` splats;
-# its photon integrators (and `aov`'s wider film) stay unsharded
-SHARDED_INTEGRATORS = ("path", "direct", "volpath", "debug")
 # how long a spawned rank waits in a collective before it fails
 SPAWN_TIMEOUT = timedelta(minutes=10)
 
@@ -167,10 +164,10 @@ def _block(mesh, scene):
 
 
 def _check_integrator(scene):
-    if scene.integrator not in SHARDED_INTEGRATORS:
+    if scene.integrator not in driver.FILM_INTEGRATORS:
         raise NotImplementedError(
             f"a sharded render of the '{scene.integrator}' integrator: only "
-            f"{', '.join(SHARDED_INTEGRATORS)} render into the 5-channel film")
+            f"{', '.join(driver.FILM_INTEGRATORS)} render into the 5-channel film")
 
 
 def _render_block(scene, block, seed, depth_cap, chunk_size, ranks):

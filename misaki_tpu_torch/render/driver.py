@@ -7,6 +7,12 @@ The full (pixels x spp) sample set is split into fixed-size lane chunks; each
 chunk is rendered and splatted into the film, which stays on the device.
 Determinism: lane index == pixel * spp + sample, and each lane's PCG32 stream
 is seeded by (lane, seed), so the image does not depend on the chunk size.
+
+On a CUDA device, with no gradient to record, a full chunk of the path,
+direct, volpath and debug integrators runs as a replay of the scene's chunk
+captured as one CUDA graph (`_graph_chunk`): the same kernels in the same
+order, launched at once instead of one by one from the host, so the film is
+the eager one to the bit. Such a scene renders one frame at a time.
 """
 
 import os
@@ -18,6 +24,7 @@ from misaki_tpu_torch.core import rng, spectrum as spec
 from misaki_tpu_torch.render import aov
 from misaki_tpu_torch.render import camera as cam
 from misaki_tpu_torch.render import film as film_mod
+from misaki_tpu_torch.render import graphs
 from misaki_tpu_torch.render import integrator as integ
 from misaki_tpu_torch.utils import tracing
 from misaki_tpu_torch.utils.logging import get_logger
@@ -26,15 +33,24 @@ DEFAULT_CHUNK = 1 << 20
 _M32 = 0xFFFFFFFF
 
 
+def seed_words(seed):
+    """`make_rng`'s words of `seed`, each in [0, 2^32): its initstate's high
+    word, the word its initseq's high word xors the lane with, and its
+    initseq's low word."""
+    seed32 = int(seed) & _M32
+    return (seed32 * 0x9E3779B9) & _M32, (seed32 * 2654435761) & _M32, seed32 | 1
+
+
 def make_rng(lane, seed):
     """Per-lane PCG32 streams: initstate = lane, initseq mixes the seed so
-    different seeds give uncorrelated sequences (misaki_tpu's make_rng)."""
-    seed32 = int(seed) & _M32
+    different seeds give uncorrelated sequences (misaki_tpu's make_rng).
+    seed: an int, or its `seed_words` as Python ints or as (1,) int64
+    tensors (a captured chunk's inputs), which give the same bits."""
+    state, mix, seq = seed if isinstance(seed, tuple) else seed_words(seed)
     lane = lane.to(torch.int64) & _M32
-    return rng.seed(
-        ((seed32 * 0x9E3779B9) & _M32, lane),
-        (lane ^ ((seed32 * 2654435761) & _M32), seed32 | 1),
-    )
+    if isinstance(seq, torch.Tensor):
+        state, seq = state.expand_as(lane), seq.expand_as(lane)
+    return rng.seed((state, lane), (lane ^ mix, seq))
 
 
 def primary_rays(scene, lane, seed):
@@ -61,7 +77,10 @@ def primary_rays(scene, lane, seed):
 def _render_chunk(scene, film_flat, lane0, n_total, seed, chunk, depth_cap):
     """Render `chunk` lanes (spp-aligned) starting at `lane0` into the film:
     XYZ, or for `aov` its AOV columns and then XYZ (render/aov.py), then
-    alpha and the filter weight."""
+    alpha and the filter weight. lane0 and seed: ints, or, in a captured
+    chunk, a (1,) int64 tensor and the seed's `seed_words` as such tensors,
+    where every lane lies in the frame."""
+    tracing.add(tracing.PATH_CHUNKS, 1)
     with tracing.span(tracing.CHUNK):
         lane = lane0 + torch.arange(chunk, dtype=torch.int64, device=film_flat.device)
         in_range = lane < n_total
@@ -86,14 +105,64 @@ def _render_chunk(scene, film_flat, lane0, n_total, seed, chunk, depth_cap):
         )
 
 
+# the integrators of the 5-channel film (`aov`'s is wider; sppm and the
+# photonmapper render no chunks)
+FILM_INTEGRATORS = ("path", "direct", "volpath", "debug")
+_GRAPH_ATTR = "_path_graph"   # a scene's captured chunk, in the scene's __dict__
+
+
+def graph_eligible(device, integrator, lane0, n_total, chunk):
+    """Whether the chunk of `chunk` lanes at `lane0` runs as a replay of the
+    scene's captured chunk (`render/graphs.py`): on a CUDA device, with no
+    gradient to record, under an integrator of the 5-channel film (`aov`'s
+    film is wider), and with every lane in the frame (a tail chunk's splat
+    masks its tail pixels, which waits on the device)."""
+    return (torch.device(device).type == "cuda" and not torch.is_grad_enabled()
+            and integrator in FILM_INTEGRATORS and lane0 + chunk <= n_total)
+
+
+def _graph_chunk(scene, film_flat, lane0, n_total, seed, chunk, depth_cap):
+    """`_render_chunk` as a replay of the scene's captured chunk: the film
+    copied into the graph's own film, the chunk's input row (lane0, the
+    seed's words and zeroed counter slots) copied from pinned memory, the
+    replay, and the graph's film copied back, so `film_flat` holds the sum
+    after every chunk and no result aliases the graph's film. Where the
+    scene holds no graph under this chunk's key, the chunk runs eagerly,
+    which builds the kernels and caches the tables, and is then captured."""
+    key = (film_flat.device, tuple(film_flat.shape), chunk, depth_cap, scene.integrator,
+           tuple(graphs.table_key(scene, [])))
+    with torch.inference_mode():
+        graph = graphs.cached(scene, _GRAPH_ATTR, key)
+        if graph is None:
+            _render_chunk(scene, film_flat, lane0, n_total, seed, chunk, depth_cap)
+            film = torch.empty_like(film_flat)
+            # the words: lane0, then the seed's three
+            graphs.capture(
+                scene, _GRAPH_ATTR, key, 4, film_flat.device,
+                lambda w: _render_chunk(scene, film, w[0], n_total, w[1:], chunk, depth_cap),
+                tracing.PATH_REPLAYS)
+            return
+        with tracing.span(tracing.CHUNK):
+            row = (lane0, *seed_words(seed)) + (0,) * len(tracing.DEVICE_COUNTERS)
+            graph.out.copy_(film_flat)
+            graph.replay(torch.tensor(row, dtype=torch.int64).pin_memory())
+            film_flat.copy_(graph.out)
+
+
 def render_lanes(scene, film_flat, lane0, lane1, seed, chunk, depth_cap):
     """Render the lanes [lane0, lane1) (spp-aligned) into the film in chunks
     of `chunk` lanes, the last one cut at lane1: `_render_chunk` masks only
     the lanes past the frame, so a chunk that ran on past lane1 would render
-    lanes of the range after it."""
+    lanes of the range after it. A chunk of `chunk` lanes replays the
+    scene's captured chunk where `graph_eligible`; a shorter one runs
+    eagerly, so a scene keeps one graph."""
     n_total = scene.film_width * scene.film_height * scene.spp
     for c0 in range(lane0, lane1, chunk):
-        _render_chunk(scene, film_flat, c0, n_total, seed, min(chunk, lane1 - c0), depth_cap)
+        n = min(chunk, lane1 - c0)
+        if n == chunk and graph_eligible(film_flat.device, scene.integrator, c0, n_total, chunk):
+            _graph_chunk(scene, film_flat, c0, n_total, seed, chunk, depth_cap)
+        else:
+            _render_chunk(scene, film_flat, c0, n_total, seed, n, depth_cap)
     return film_flat
 
 
@@ -194,7 +263,8 @@ def render(scene, seed=0, chunk_size=DEFAULT_CHUNK,
                 film_flat = film_mod.new_film_flat(H, W, n_channels, scene.filter_type,
                                                    scene.filter_stddev, device=scene.device)
             for c in range(start, n_chunks):
-                _render_chunk(scene, film_flat, c * chunk, n_total, seed, chunk, depth_cap)
+                render_lanes(scene, film_flat, c * chunk, (c + 1) * chunk, seed, chunk,
+                             depth_cap)
                 if progress is not None:
                     progress(c + 1, n_chunks)
                 if (checkpoint_path is not None and checkpoint_every > 0

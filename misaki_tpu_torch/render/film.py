@@ -40,9 +40,11 @@ def new_film_flat(H, W, channels=5, filter_type="gaussian", stddev=0.5, device="
 def splat_aligned(film_flat, pixel0, pos, values, W, H, spp,
                   filter_type="gaussian", stddev=0.5):
     """Accumulate an spp-aligned, pixel-major chunk into the flat film, in
-    place. pixel0: first flat pixel id (int); pos: (px, py) tuple of (L,);
-    values: tuple of C (L,) channel tensors; L = n_pix * spp. Pixels past
-    the image (the last chunk's tail) must carry zero values."""
+    place. pixel0: first flat pixel id, an int, or a (1,) int64 tensor (a
+    captured chunk's input) where every pixel of the chunk lies in the
+    image; pos: (px, py) tuple of (L,); values: tuple of C (L,) channel
+    tensors; L = n_pix * spp. Pixels past the image (the last chunk's
+    tail) must carry zero values."""
     C = len(values)
     L = values[0].shape[0]
     n_pix = L // spp
@@ -79,13 +81,20 @@ def splat_aligned(film_flat, pixel0, pos, values, W, H, spp,
     in_y = {o: ((py0 + o >= 0) & (py0 + o < H)).to(torch.float32) for o in offs}
 
     # the last chunk may run past the image: its tail pixels (zero values)
-    # are dropped so no index leaves the guarded film
-    keep = pix < H * W
+    # are dropped so no index leaves the guarded film. A boolean mask's
+    # indexing waits on the device for its count, so a chunk inside the
+    # image adds every pixel unmasked: the same indices and terms
+    keep = None
+    if not isinstance(pixel0, torch.Tensor) and pixel0 + n_pix > H * W:
+        keep = pix < H * W
     for ox, oy in taps:
         w = wx_all[ox] * wy_all[oy] * (in_x[ox] * in_y[oy])[:, None]
         contrib = torch.sum(w[None, :, :] * v, dim=2)  # (C, n_pix)
         idx = guard + pix + (oy * W + ox)
-        film_flat.index_add_(1, idx[keep], contrib[:, keep])
+        if keep is None:
+            film_flat.index_add_(1, idx, contrib)
+        else:
+            film_flat.index_add_(1, idx[keep], contrib[:, keep])
     return film_flat
 
 

@@ -40,7 +40,6 @@ path integrator makes them, one more for envmap photon emission.
 """
 
 import ctypes
-import dataclasses
 import math
 import os
 from typing import Any, NamedTuple
@@ -55,6 +54,7 @@ from misaki_tpu_torch.core import math as m
 from misaki_tpu_torch.core import spectrum as spec
 from misaki_tpu_torch.emitter import kernels as emitter
 from misaki_tpu_torch.render import camera as cam
+from misaki_tpu_torch.render import graphs
 from misaki_tpu_torch.render import interaction as inter
 from misaki_tpu_torch.scene.types import (
     BSDF_DIFFUSE,
@@ -774,68 +774,19 @@ def graph_eligible(device, bsdf_kinds, sppm_mode):
     return torch.device(device).type == "cuda" and not (sppm_mode and _has_glossy(bsdf_kinds))
 
 
-def _table_key(x, out):
-    """Append (data_ptr, shape) of every tensor of a scene's tables to
-    `out`: a table replaced in place of another changes it."""
-    if isinstance(x, torch.Tensor):
-        out.append((x.data_ptr(), tuple(x.shape)))
-    elif dataclasses.is_dataclass(x):
-        for f in dataclasses.fields(x):
-            _table_key(getattr(x, f.name), out)
-    return out
-
-
-class _Graph(NamedTuple):
-    """One captured iteration of a scene under `key` (device, budget, mode,
-    grid, L, P and the scene's tables): it reads the `Words` from `inputs`
-    and the per-pixel state `st`, and writes `st` in place. `inputs` holds
-    the words, then the graph's own device counters, which each replay's
-    input row zeroes; `rec` is what its Python added
-    (`tracing.Recording`)."""
-    key: tuple
-    graph: Any
-    st: dict
-    inputs: Any
-    rec: Any
-
-    def replay(self, row):
-        """Run the iteration of input row `row` (a row of `_input_rows`)."""
-        self.inputs.copy_(row)
-        self.graph.replay()
-        tracing.replayed(self.rec)
-
-
-def _cached_graph(scene, key):
-    """The scene's captured iteration if it was captured under `key`; one
-    under another key is dropped, so a scene holds at most one graph and
-    its memory pool."""
-    graph = scene.__dict__.get(_GRAPH_ATTR)
-    if graph is not None and graph.key != key:
-        del scene.__dict__[_GRAPH_ATTR]
-        graph = None
-    return graph
-
-
 def _capture(scene, key, st, budget, sppm_mode, grid):
     """Capture one iteration of `scene` as a CUDA graph whose state is `st`
-    (its tensors become the graph's), cache it with the scene and return
-    it. Called after an eager iteration of the scene, so that the kernels
-    are built, their settings made and the device tables cached."""
-    n = len(Words._fields)
-    inputs = torch.zeros(n + len(tracing.DEVICE_COUNTERS), dtype=torch.int64,
-                         device=st["radius"].device)
-    words = Words(*(inputs[i:i + 1] for i in range(n)))
-    cuda_graph = torch.cuda.CUDAGraph()
-    with tracing.recording(inputs[n:]) as rec, \
-            torch.cuda.graph(cuda_graph, capture_error_mode="thread_local"):
-        new = _iteration(scene, st, words, budget, sppm_mode, grid)
+    (its tensors become the graph's `out`), cache it with the scene and
+    return it (`graphs.capture`)."""
+    def step(words):
+        new = _iteration(scene, st, Words(*words), budget, sppm_mode, grid)
         for k, v in new.items():
             if v is not st[k]:
                 st[k].copy_(v)
-        tracing.add(tracing.PPM_REPLAYS, 1)
-    graph = _Graph(key, cuda_graph, st, inputs, rec)
-    scene.__dict__[_GRAPH_ATTR] = graph
-    return graph
+        return st
+
+    return graphs.capture(scene, _GRAPH_ATTR, key, len(Words._fields), st["radius"].device,
+                          step, tracing.PPM_REPLAYS)
 
 
 def _input_rows(seed, iters, device):
@@ -865,9 +816,9 @@ def render_ppm(scene, seed=0, depth_cap=16, checkpoint_path=None, checkpoint_eve
 
     Where `graph_eligible`, the first iteration a scene renders runs eagerly
     and is then captured as a CUDA graph, which every later iteration of
-    the scene replays (`_Graph`): the same kernels in the same order, so the
-    frame is the eager one to the bit. Such a scene renders one frame at a
-    time. Elsewhere every iteration runs eagerly.
+    the scene replays (`graphs.Graph`): the same kernels in the same order,
+    so the frame is the eager one to the bit. Such a scene renders one
+    frame at a time. Elsewhere every iteration runs eagerly.
 
     checkpoint_path / checkpoint_every / progress work per iteration: the
     whole per-pixel state is saved every `checkpoint_every` iterations and a
@@ -886,11 +837,11 @@ def render_ppm(scene, seed=0, depth_cap=16, checkpoint_path=None, checkpoint_eve
         key = None
         if graph_eligible(dev, scene.bsdf_kinds, sppm_mode):
             key = (dev, budget, sppm_mode, grid, L, photon_count(scene),
-                   tuple(_table_key(scene, [])))
+                   tuple(graphs.table_key(scene, [])))
 
         with torch.inference_mode():
-            graph = None if key is None else _cached_graph(scene, key)
-            st = _initial_state(L, r0, dev, None if graph is None else graph.st)
+            graph = None if key is None else graphs.cached(scene, _GRAPH_ATTR, key)
+            st = _initial_state(L, r0, dev, None if graph is None else graph.out)
             start = 0
             fingerprint = ppm_fingerprint(scene, seed, budget)
             if checkpoint_path is not None and os.path.exists(checkpoint_path):

@@ -58,18 +58,23 @@ Counters:
   ppm.iterations          host: photon-mapping iterations, eager or replayed
   ppm.graph.replays       host: the iterations that ran as a replay of a
                           captured CUDA graph (`render/ppm.py`)
+  path.chunks             host: the chunks of lanes `driver._render_chunk`
+                          renders, eager or replayed
+  path.graph.replays      host: the chunks that ran as a replay of a
+                          captured CUDA graph (`render/driver.py`)
   shard.ranks             host: the ranks of each sharded frame
   shard.lanes             host: this rank's lanes of each sharded frame
   shard.film_sum.bytes    host: the bytes each all-reduce of a sharded
                           frame's film sums
 
 A CUDA graph runs no Python, so what the Python of its one captured
-iteration adds is recorded: under `recording(slots)` the host counts and the
-launches go to the `Recording`, not to the session or `launches`, and the
-kernels add to the graph's own device counters `slots` (zeroed by whoever
-replays the graph, before each replay). `replayed(rec)`, after each replay,
-adds the recorded launches to `launches` and, while tracing is on, the
-recorded host counts and the graph's device counters to the session.
+iteration or chunk adds is recorded: under `recording(slots)` the host
+counts and the launches go to the `Recording`, not to the session or
+`launches`, and the kernels add to the graph's own device counters `slots`
+(zeroed by whoever replays the graph, before each replay). `replayed(rec)`,
+after each replay, adds the recorded launches to `launches` and, while
+tracing is on, the recorded host counts and the graph's device counters to
+the session.
 
 `launches` is always on, and not zeroed by a session: the launches of each
 hand-written kernel in the process ("closest", "anyhit", "fetch",
@@ -97,12 +102,14 @@ DENSITY_CONTRIBUTING = "density.contributing"
 DENSITY_LIVE = "density.live"
 PPM_ITERATIONS = "ppm.iterations"
 PPM_REPLAYS = "ppm.graph.replays"
+PATH_CHUNKS = "path.chunks"
+PATH_REPLAYS = "path.graph.replays"
 SHARD_RANKS = "shard.ranks"
 SHARD_LANES = "shard.lanes"
 SHARD_FILM_SUM_BYTES = "shard.film_sum.bytes"
 
 HOST_COUNTERS = (CAST_RAYS, DENSITY_PHOTONS, DENSITY_VPS, PPM_ITERATIONS, PPM_REPLAYS,
-                 SHARD_RANKS, SHARD_LANES, SHARD_FILM_SUM_BYTES)
+                 PATH_CHUNKS, PATH_REPLAYS, SHARD_RANKS, SHARD_LANES, SHARD_FILM_SUM_BYTES)
 # the device buffer's slots, in this order; the density kernel takes the
 # address of DENSITY_ALIVE and writes that slot and the next two
 DEVICE_COUNTERS = (CAST_LIVE, DENSITY_ALIVE, DENSITY_CONTRIBUTING, DENSITY_LIVE)

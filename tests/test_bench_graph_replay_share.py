@@ -1,6 +1,7 @@
-"""The reader of `graph_replay_share.sppm` (benchmark/metrics/) on synthetic
-counter dicts: replays over iterations, and None where the program counts
-no iteration or has no such counters (a program older than the counters)."""
+"""The readers of `graph_replay_share.sppm` and `graph_replay_share.frame`
+(benchmark/metrics/) on synthetic counter dicts: replays over iterations or
+chunks, and None where the program counts none or has no such counters (a
+program older than the counters)."""
 
 from pathlib import Path
 
@@ -35,3 +36,25 @@ class Run:
 def test_replays_over_iterations(reader, monkeypatch, counts, want):
     monkeypatch.setattr(ps, "counts", lambda: counts)
     assert reader.read(Run) == want
+
+
+@pytest.fixture
+def frame_reader():
+    return harness.load_module(BENCH / "metrics" / "graph_replay_share.frame.py",
+                               "t_graph_replay_share_frame")
+
+
+@pytest.mark.parametrize("counts,want", [
+    ({"path.chunks": 16, "path.graph.replays": 16}, 1.0),
+    ({"path.chunks": 8, "path.graph.replays": 6}, 0.75),
+    ({"path.chunks": 4, "path.graph.replays": 0}, 0.0),
+    ({"path.chunks": 4}, 0.0),
+    ({"path.chunks": 0, "path.graph.replays": 0}, None),
+    ({"ppm.iterations": 8, "ppm.graph.replays": 8}, None),
+    ({"cast.closest.rays": 100}, None),
+    ({}, None),
+    (None, None),
+])
+def test_replays_over_chunks(frame_reader, monkeypatch, counts, want):
+    monkeypatch.setattr(ps, "counts", lambda: counts)
+    assert frame_reader.read(Run) == want

@@ -1,5 +1,5 @@
 """The photon-mapping iteration as a CUDA graph (misaki_tpu_torch/render/ppm.py
-`_Graph`), held to the eager iteration on the card: cbox sppm and
+`_capture`, render/graphs.py), held to the eager iteration on the card: cbox sppm and
 photonmapper frames through the graph equal `ppm_iteration` in a loop to the
 bit, for a frame that captures and for one of another seed that only
 replays; a replaced scene table captures again; a frame resumed from a
@@ -133,6 +133,7 @@ def test_a_graph_frame_counts_what_the_eager_frame_counts(integrator, tmp_path):
     ppm.render_ppm(scene, seed=5)     # the capture, outside the sessions
 
     def session(fn, name):
+        torch.cuda.synchronize()      # no kernel of an earlier frame runs into the trace
         launched = dict(tracing.launches)
         acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
         with torch.profiler.profile(activities=acts) as prof:
