@@ -1,25 +1,28 @@
 #!/usr/bin/env python3
-"""GPU smoke test of the PyTorch/CUDA port (misaki_tpu_torch) on one card.
+"""The card's correctness check of the PyTorch/CUDA port (misaki_tpu_torch),
+on one card: each hand-written kernel against its plain twin, each
+integrator's frame against its launch counts, image checks and the same
+render on the CPU, checkpoint/resume, gradients and sharding. Frames, steps
+and processes are timed by the benchmark (`python3 benchmark/run.py
+--workload <cell>`), not here; what this script times is each kernel on its
+own, beside its twin and its bound.
 
     python3 chip_smoke.py
 
 Phases, one line each; any failure exits non-zero:
   1. a CUDA device is present (name and power limit from nvidia-smi);
   2. the kernels build from csrc/cluster.cu, csrc/texel_fetch.cu and
-     csrc/ppm_density.cu, and the density estimate's levers with its first,
-     dense kernel from tools/ppm_density_levers.cu, with nvcc (sm_90a), one nvcc
-     per source, started together;
+     csrc/ppm_density.cu with nvcc (sm_90a), one nvcc per source, started
+     together;
   3. each cluster kernel against its plain PyTorch twin on the card: the
-     bunny stand-in (20,480 faces, 160 clusters; its accel's host build
-     timed) with 2^20 camera-like and 2^20 random rays, the Cornell box with
-     2^20 camera rays, the bunny with every face duplicated into a second
-     set of clusters (every hit an exact tie, which the copy's larger face
-     id must win) and an accel with no faces; both times and each cast's
-     bound;
-  4. the cbox main path at the benchmark spec (256x256, 64 spp, 4 bounces,
-     2^20-lane chunks) through render() on cuda — a warm-up frame, then 3
-     timed frames with the launch counters reset just before them and
-     checked after; seconds per frame and rays/s;
+     bunny stand-in (20,480 faces, 160 clusters) with 2^20 camera-like and
+     2^20 random rays, the Cornell box with 2^20 camera rays, the bunny with
+     every face duplicated into a second set of clusters (every hit an exact
+     tie, which the copy's larger face id must win) and an accel with no
+     faces; both device times and each cast's bound;
+  4. one cbox frame at the benchmark spec (256x256, 64 spp, 4 bounces,
+     2^20-lane chunks) through render() on cuda, the launch counters reset
+     just before it and checked after; image checks;
   5. a small cbox render on cuda against the same render on the CPU;
   6. the texel-fetch kernel against its plain twin at 2^20 lanes
      (misaki_tpu_torch.tools.profile_texel_fetch): random bilinear taps into
@@ -29,32 +32,28 @@ Phases, one line each; any failure exits non-zero:
      random taps modulo a 4 MB table), each with its bound and sector
      bytes; beside it the library call F.embedding_bag on the same taps
      (timed and checked, never used by the port);
-  7. the envlit main path (the bunny stand-in on a bitmap-textured floor
-     under a 2048x4096 HDR sky, 256x256, 64 spp, 4 bounces) through render()
-     on cuda, as in phase 4, with the launches of all three kernels checked
-     and the texel fetch's device time per launch in the frame; image
-     checks; a small envlit render on cuda against the CPU;
+  7. one envlit frame (the bunny stand-in on a bitmap-textured floor under
+     a 2048x4096 HDR sky, 256x256, 64 spp, 4 bounces) as in phase 4, with
+     the launches of all three kernels checked; image checks; a small
+     envlit render on cuda against the CPU;
   8. the closest-hit stage profile (misaki_tpu_torch.tools.profile_cluster_frame)
      on the bunny stand-in's camera rays and on random rays;
   9. the material gallery (misaki_tpu_torch/scenes/materials/: nine spheres,
      one per BSDF kind but null, the gold ball's GGX alpha from a 256^2
      bitmap, a constant environment and a point light) at the benchmark
-     spec through render() on cuda, as in phase 4, with the launches of all
-     three kernels checked; device busy share and top kernels from one
-     profiled frame; image checks (finite and non-negative, every ball's
-     mean off the floor's, the glass balls not black); a small gallery
-     render on cuda against the CPU;
+     spec, one frame as in phase 4 with the launches of all three kernels
+     checked; image checks (finite and non-negative, every ball's mean off
+     the floor's, the glass balls not black); a small gallery render on
+     cuda against the CPU;
  10. Figure 2 and Figure 3, the rough-conductor and rough-dielectric test
      balls (misaki_tpu_torch/scenes/testball/), at their declared 1280x720,
-     128 spp (max_depth 5 and 7): a small warm-up render, then one timed
-     frame each with the cluster launches checked; the same image checks;
-     device busy share and top kernels from a profiled 4 spp frame at
-     1280x720; a small render of each on cuda against the CPU;
+     128 spp (max_depth 5 and 7): one frame each as in phase 4; the same
+     image checks; a small render of each on cuda against the CPU;
  11. the bunny intersection-rate workload (scenes/bunny_debug.xml: the
-     `debug` integrator, 768x768, 1 spp, one chunk) through render() on
-     cuda, as in phase 4 (launches 1 / 0 / 0 a frame); image checks (the
-     mean |n| over the bunny's pixels in (0, 1], the border black, the
-     bunny's share of the pixels); a 96x96 render on cuda against the CPU;
+     `debug` integrator, 768x768, 1 spp, one chunk), one frame as in phase
+     4 (launches 1 / 0 / 0 a chunk); image checks (the mean |n| over the
+     bunny's pixels in (0, 1], the border black, the bunny's share of the
+     pixels); a 96x96 render on cuda against the CPU;
  12. cbox under `direct` (scenes/cbox/direct.xml: 2 emitter and 2 BSDF
      samples, 256x256, 64 spp) as in phase 4 (launches 12 / 8 / 0); the
      cbox image checks; a 64x64, 8 spp render on cuda against the CPU;
@@ -76,9 +75,9 @@ Phases, one line each; any failure exits non-zero:
      rad_curve) toward a target rendered with the red wall's reflectance
      slot taken from the green wall's column: the loss falls, every
      gradient is finite, the red wall's slot has a gradient, the step-0
-     directional FD agrees within 10%, the same step's gradients on CUDA
-     and on the CPU at 64x48 x 16 spp within 1e-4 relative L1; seconds per
-     step (the frame is one autograd pass), peak memory, launches per step;
+     directional FD agrees within 10%, each step's launches are one
+     autograd pass's, the same step's gradients on CUDA and on the CPU at
+     64x48 x 16 spp within 1e-4 relative L1;
      (b) one image_grads of the image mean over bitmaps and env_rgb on
      envlit at the same spec: backward fetch launches equal the forward
      fetches, directional FDs within 5%, the same gradient on CUDA and on
@@ -90,80 +89,67 @@ Phases, one line each; any failure exits non-zero:
      from run to run) on the taps of every backward launch of that gradient
      (2^22 lanes each) and at 2^20 lanes on phase 6's env_random,
      bitmap_camera_mips and env_nee taps, beside its scratch's zeroing and
-     finalize alone and the library call index_add_; (d) the envlit
-     gradient's peak memory and time by chunk size;
+     finalize alone and the library call index_add_;
  16. volpath and participating media: (a) the teapot stand-in
      (misaki_tpu_torch/scenes/teapot/: glass holding a homogeneous medium,
      a null sphere holding a scattering one) at its declared 1280x720, 128
-     spp, depth cap 8: a small warm-up render, then one timed frame with
-     the launches checked (closest hit 1 + 5 x 8 a chunk, no any hit, no
-     fetch); device busy share and top kernels from a profiled 4 spp frame
-     at 1280x720, and the closest-hit kernel's device time per launch by
-     its place in a chunk (camera, transmittance segments 1-4, next cast);
-     image checks (finite, non-negative, each medium's pixels changed by
-     the media, against a 160x90 render with the media's scale 0); a
-     64x36, 4 spp render (depth cap 2) on cuda against the CPU; (b) the grid-volume scene
-     (scenes/volume/, its 64^3 grid written into build/scenes/volume/<hash>/
-     at first use) at 256x256, 64 spp, depth cap 4 (launches 21 / 0 / 0 a
-     chunk), image checks, the kernel launches and busy share of one
-     profiled chunk (64x64 x 16 spp) and a small CUDA-vs-CPU render; (c) one
-     image_grads of the image mean over sigma_s_amp, sigma_a_amp and
-     medium_scale on the teapot at 256x256 x 64 spp and over volumes on the
-     grid at 128x128 x 16 spp (2^18 lanes: a grid's 32-step marches keep
-     their activations), each with its time, peak memory and launches, a
-     directional FD within 10% on the media's transmittance (where the
-     estimator is smooth in the leaf; the image's FD is reported beside
-     it), and the same gradients on CUDA and on the CPU at 48x27 x 8 spp
-     (depth cap 2) within 1e-4 relative L1;
+     spp, depth cap 8, one frame as in phase 4 (closest hit 1 + 5 x 8 a
+     chunk, no any hit, no fetch); image checks (finite, non-negative, each
+     medium's pixels changed by the media, against a 160x90 render with the
+     media's scale 0); a 64x36, 4 spp render (depth cap 2) on cuda against
+     the CPU; (b) the grid-volume scene (scenes/volume/, its 64^3 grid
+     written into build/scenes/volume/<hash>/ at first use) at 256x256, 64
+     spp, depth cap 4 (launches 21 / 0 / 0 a chunk), image checks and a
+     small CUDA-vs-CPU render; (c) one image_grads of the image mean over
+     sigma_s_amp, sigma_a_amp and medium_scale on the teapot at 256x256 x
+     64 spp and over volumes on the grid at 128x128 x 16 spp (2^18 lanes: a
+     grid's 32-step marches keep their activations), each with its
+     launches, a directional FD within 10% on the media's transmittance
+     (where the estimator is smooth in the leaf; the image's FD is reported
+     beside it), and the same gradients on CUDA and on the CPU at 48x27 x 8
+     spp (depth cap 2) within 1e-4 relative L1;
  17. sppm and photonmapper (render/ppm.py): (a) cbox under sppm
      (scenes/cbox/sppm.xml) at 256x256, 262,144 photons a pass, 8
-     iterations, depth budget 5, through render() on cuda: a small warm-up
-     frame, then 3 timed frames, seeds varied, launches checked against
-     ppm.launches_per_iteration (closest hit 10, any hit 5, density 4 an
-     iteration); seconds per frame, photons/s, iterations/s; image checks
-     (finite, red left, green right, alpha, the mean within 20% of a
-     256x256 64 spp path frame's and the luminance of 4x4-pixel means
-     correlated with it above 0.9, as tests/test_ppm.py compares them);
-     (b) the photonmapper (photonmapper.xml) the same way (10 / 0 / 5;
-     25% and 0.85); (c) envlit under sppm at 256x256, the same photons and
-     iterations: envmap photon emission, bitmap visible points, the texel
-     fetch's launches checked; (d) the gallery under sppm reduced to
-     128x128, 2^14 photons, 2 iterations: glossy visible points (the plain
-     pair path), point and constant-environment photons; (e) the density
-     estimate's grid kernel against its twin on the first splatted depth of
-     (a)'s and (b)'s frames (262,144 photons against 65,536 visible points,
-     with the frame's grid) and on the adversarial mix of
-     tools/profile_ppm_density.py: counts equal, phi allclose (rtol 1e-5,
-     atol 1e-6 of the largest magnitude) in each of 10 calls and equal to
-     the bit between calls; the kernel's device time beside the dense
-     kernel's (tools/ppm_density_levers.cu; in turns: the port, the dense
-     kernel twice, the port) and the twin's, the CUDA launches of one estimate, the
-     pairs it tested, the bound (inputs read and outputs written once,
-     against the passing pairs' operations) and the dense form's; (f) a 64x48
-     cbox sppm render (8192 photons, 2 iterations) on cuda against the CPU;
-     (g) a cbox sppm render (128x128, 2^16 photons, 4 iterations) stopped
-     after iteration 3 and resumed from the per-iteration snapshot: equal
-     to the bit;
+     iterations, depth budget 5, one frame through render() on cuda with
+     its launches checked against ppm.launches_per_iteration (closest hit
+     10, any hit 5, density 4 an iteration); image checks (finite, red
+     left, green right, alpha, the mean within 20% of a 256x256 64 spp path
+     frame's and the luminance of 4x4-pixel means correlated with it above
+     0.9, as tests/test_ppm.py compares them); (b) the photonmapper
+     (photonmapper.xml) the same way (10 / 0 / 5; 25% and 0.85); (c) envlit
+     under sppm at 256x256, the same photons and iterations: envmap photon
+     emission, bitmap visible points, the texel fetch's launches checked;
+     (d) the gallery under sppm reduced to 128x128, 2^14 photons, 2
+     iterations: glossy visible points (the plain pair path), point and
+     constant-environment photons; (e) the density estimate's grid kernel
+     against its twin on the first splatted depth of (a)'s and (b)'s frames
+     (262,144 photons against 65,536 visible points, with the frame's grid)
+     and on the adversarial mix of tools/profile_ppm_density.py: counts
+     equal, phi allclose (rtol 1e-5, atol 1e-6 of the largest magnitude) in
+     each of 10 calls and equal to the bit between calls; the kernel's and
+     the twin's device times, the CUDA launches of one estimate, the pairs
+     it tested and the bound (inputs read and outputs written once, against
+     the passing pairs' operations); (f) a 64x48 cbox sppm render (8192
+     photons, 2 iterations) on cuda against the CPU; (g) a cbox sppm render
+     (128x128, 2^16 photons, 4 iterations) stopped after iteration 3 and
+     resumed from the per-iteration snapshot: equal to the bit;
  18. sharding (parallel/sharding.py) on the one card: (a) world size 1 over
      NCCL, a render_sharded frame of cbox at the benchmark spec beside a
      render() frame of the same seed (the films equal to the bit), its
-     launches as phase 4's, the film's all-reduce time (CUDA events) and
-     bytes; (b) train_step_sharded at world size 1 beside train_step on
-     phase 15 (a)'s step (loss rtol 1e-6, gradients within 1e-5 relative
-     L1); (c) FUNCTIONAL ONLY, not a scaling result: two processes that
-     share the card over gloo, render_sharded on a (2,) mesh and
+     launches as phase 4's; (b) train_step_sharded at world size 1 beside
+     train_step on phase 15 (a)'s step (loss rtol 1e-6, gradients within
+     1e-5 relative L1), its launches one pass's; (c) two processes that
+     share the card over gloo: render_sharded on a (2,) mesh and
      render_sharded_2d on (1, 2) and (2, 1) against (a)'s film,
-     train_step_sharded on (2,) against (b)'s gradients, and
-     dryrun_multichip(2); seconds per frame and step and the processes'
-     start apart;
-then the port's bench (python -m misaki_tpu_torch.tools.bench), its lines
-printed with a "[bench]" prefix. Timed and profiled frames pass the bench's
-`quiet` progress callback, so the driver's progress log stays out of them.
-Every kernel time is a device time taken one way
-(`profile_cluster_frame.device_ms`: CUDA events around launches enqueued
-while a device sleep holds the stream, so the host's launch cost is not in
-it). Then one JSON line with the kernels' numbers, and last the result line
-{"ok": true, "device": {...}}. Extra detail goes to chiprun_out/.
+     train_step_sharded on (2,) against (b)'s gradients, every rank's
+     results the same, then dryrun_multichip(2).
+Frames pass `quiet`, a progress callback that reports nothing, so the
+driver's progress log stays out of the output. Every kernel time is a
+device time taken one way (`profile_cluster_frame.device_ms`: CUDA events
+around launches enqueued while a device sleep holds the stream, so the
+host's launch cost is not in it). Then one JSON line with the kernels'
+numbers, and last the result line {"ok": true, "device": {...}}. Extra
+detail goes to chiprun_out/.
 """
 
 import json
@@ -186,7 +172,6 @@ VOLUME_BUILD = ROOT / "build" / "scenes" / "volume"
 # benchmark spec of the main path (bench.py:29-67)
 BENCH_W, BENCH_H, BENCH_SPP, BENCH_DEPTH, BENCH_CHUNK = 256, 256, 64, 4, 1 << 20
 N_RAYS = 1 << 20
-N_FRAMES = 3
 # depth cap of the CPU halves of phases 15 and 16's CUDA-vs-CPU gradients and
 # of the teapot's CUDA-vs-CPU render: the CPU casts scan every cluster on
 # incoherent rays, and at depth 4 those halves took 141, 158 and 60 s of
@@ -233,6 +218,11 @@ def random_rays(n, lo, hi, gen):
     d = torch.randn((3, n), device="cuda", generator=gen)
     d = d / torch.linalg.norm(d, dim=0, keepdim=True)
     return o, d
+
+
+def quiet(done, total):
+    """A progress callback that reports nothing: keeps the driver's log
+    lines out of the phases' output."""
 
 
 def compare_kernels(acc, o, d, maxt_shadow, label, report, copy_from=None):
@@ -343,67 +333,58 @@ def read_counts():
                                              "density")}
 
 
-def timed_frames(scene, label, want_per_chunk, n_frames=N_FRAMES, warmup=None,
-                 depth_cap=BENCH_DEPTH):
-    """A warm-up frame (of `warmup`, else of `scene`), then `n_frames` timed
-    frames of `scene` on cuda with every launch count set to 0 just before
-    them and read just after; fails unless the counts are n_frames * chunks
-    * `want_per_chunk` and the fetch's backward never ran. Rays per frame
-    count `bench.py:65-68`'s way, W * H * spp * rays per sample
-    (tools/bench.py `rays_per_sample`: 1 + 2 * bounce iterations on a path
-    frame, 1 + 5 on a volpath frame). Returns (last frame's output, seconds
-    per frame, rays/s, launches)."""
+def checked_frame(scene, label, want_per_chunk, depth_cap=BENCH_DEPTH):
+    """One frame of `scene` through render() on cuda in the benchmark's
+    chunks, with every launch count set to 0 just before it and read just
+    after; fails unless the counts are chunks * `want_per_chunk` and the
+    fetch's backward and the density estimate never ran. Returns (the
+    frame's output, its launches)."""
     import torch
 
     from misaki_tpu_torch.render.driver import render
-    from misaki_tpu_torch.render.integrator import n_bounce_iters, volpath_iters
-    from misaki_tpu_torch.tools.bench import quiet, rays_per_sample
 
-    n_samples = scene.film_width * scene.film_height * scene.spp
-    n_chunks = -(-n_samples // BENCH_CHUNK)
-    n_iters = (volpath_iters if scene.integrator == "volpath" else n_bounce_iters)(
-        scene, depth_cap)
-    per_sample = rays_per_sample(scene, depth_cap)
-    render(scene if warmup is None else warmup, seed=0, chunk_size=BENCH_CHUNK,
-           depth_cap=depth_cap, progress=quiet)
-    torch.cuda.synchronize()
+    n_chunks = -(-scene.film_width * scene.film_height * scene.spp // BENCH_CHUNK)
     reset_counts()
-    t0 = time.perf_counter()
-    for i in range(n_frames):
-        out = render(scene, seed=i + 1, chunk_size=BENCH_CHUNK, depth_cap=depth_cap,
-                     progress=quiet)
+    out = render(scene, seed=1, chunk_size=BENCH_CHUNK, depth_cap=depth_cap, progress=quiet)
     torch.cuda.synchronize()
-    dt = (time.perf_counter() - t0) / n_frames
     launches = read_counts()
     # a frame under inference_mode never launches the fetch's backward
     want = {"fetch_bwd": 0, "density": 0,
-            **{k: n_frames * n_chunks * v for k, v in want_per_chunk.items()}}
-    rays_per_s = n_samples * per_sample / dt
+            **{k: n_chunks * v for k, v in want_per_chunk.items()}}
     phase(label, f"{scene.film_width}x{scene.film_height} {scene.spp} spp, {scene.integrator}, "
-                 f"{n_iters} bounce iterations, {per_sample} rays per sample: {dt:.4f} s/frame, "
-                 f"{rays_per_s:.6e} rays/s ({n_frames} frames, {n_chunks} chunks of "
-                 f"{BENCH_CHUNK}); launches {launches} expected {want}")
+                 f"depth cap {depth_cap}, {n_chunks} chunks of {BENCH_CHUNK}: launches "
+                 f"{launches} expected {want}")
     if launches != want:
         fail(f"phase {label}: kernel launch counts {launches} != expected {want}")
-    return out, dt, rays_per_s, launches
+    return out, launches
 
 
-def cuda_vs_cpu(scene_cpu, label, depth_cap=BENCH_DEPTH):
-    """The same small render on cuda and on the CPU through the bench's
-    `cuda_cpu_parity`: relative difference of the image means < 0.5%,
-    relative L1 < 2%, on the RGB and on every AOV. Returns the largest of
+def cuda_vs_cpu(scene_cpu, label, depth_cap=BENCH_DEPTH, seed=7):
+    """The same small render on cuda and on the CPU, compared on the RGB and
+    on every AOV: the difference of the image means relative to the mean (a
+    signed AOV's to its mean magnitude) < 0.5%, the mean absolute
+    difference relative to the mean magnitude < 2%. Returns the largest of
     each over the images."""
-    from misaki_tpu_torch.tools.bench import cuda_cpu_parity
+    import numpy as np
 
-    res = cuda_cpu_parity(scene_cpu, depth_cap=depth_cap)
-    ok = res.pop("ok")
+    from misaki_tpu_torch.render.driver import render
+
+    out_a = render(scene_cpu.to("cuda"), seed=seed, depth_cap=depth_cap)
+    out_b = render(scene_cpu, seed=seed, depth_cap=depth_cap)
+    res = {}
+    for name in ["rgb", *out_b.get("aovs", {})]:
+        a, b = ((o["rgb"] if name == "rgb" else o["aovs"][name]).cpu().numpy()
+                for o in (out_a, out_b))
+        scale = abs(b.mean()) if name == "rgb" else np.abs(b).mean()
+        res[name] = {"mean_rel": float(abs(a.mean() - b.mean()) / max(scale, 1e-12)),
+                     "l1_rel": float(np.abs(a - b).mean() / max(np.abs(b).mean(), 1e-12))}
     samples = (f"{scene_cpu.ppm_photons} photons x {scene_cpu.ppm_iterations} iterations"
                if scene_cpu.integrator in ("sppm", "photonmapper") else f"{scene_cpu.spp} spp")
     for name, r in res.items():
         phase(label, f"{scene_cpu.film_width}x{scene_cpu.film_height} {samples} "
                      f"cuda vs cpu, {name}: mean rel diff {r['mean_rel']:.3e}, relative L1 "
                      f"{r['l1_rel']:.3e}")
-    if not ok:
+    if not all(r["mean_rel"] < 5e-3 and r["l1_rel"] < 2e-2 for r in res.values()):
         fail(f"phase {label}: cuda render disagrees with the cpu render {res}")
     return (max(r["mean_rel"] for r in res.values()), max(r["l1_rel"] for r in res.values()))
 
@@ -417,14 +398,14 @@ def interior(mask, r=3):
     return -F.max_pool2d(-mask.float()[None, None], 2 * r + 1, 1, r)[0, 0] > 0.5
 
 
-def phase_debug(profiles):
+def phase_debug():
     """Phase 11: the bunny intersection-rate workload. Returns its numbers."""
     import numpy as np
 
     from misaki_tpu_torch.scene.compiler import load_and_compile
 
     scene = load_and_compile(str(SCENES / "bunny_debug.xml"))
-    out, dt, rays, launches = timed_frames(scene, "11", {"closest": 1, "anyhit": 0, "fetch": 0})
+    out, launches = checked_frame(scene, "11", {"closest": 1, "anyhit": 0, "fetch": 0})
     rgb = out["rgb"].cpu().numpy()
     np.save(OUT_DIR / "bunny_debug_rgb.npy", rgb)
     hit = (rgb > 0).any(axis=-1)
@@ -438,13 +419,11 @@ def phase_debug(profiles):
     phase("11", f"bunny pixels {hit.mean():.4f}, mean |n| there {mean_n:.4f}; checks {checks}")
     if not all(checks.values()):
         fail(f"phase 11: image checks failed {checks}")
-    profiles["bunny_debug"] = try_profile(frame(scene), dt, "11", "profile_bunny_debug.txt")
     small = load_and_compile(str(SCENES / "bunny_debug.xml"), width=96, height=96, device="cpu")
-    return {"frame_s": dt, "rays_per_s": rays, "launches": launches,
-            "cuda_vs_cpu": cuda_vs_cpu(small, "11")}
+    return {"launches": launches, "cuda_vs_cpu": cuda_vs_cpu(small, "11")}
 
 
-def phase_direct(profiles):
+def phase_direct():
     """Phase 12: cbox under `direct`. Returns its numbers."""
     import numpy as np
 
@@ -453,8 +432,8 @@ def phase_direct(profiles):
     xml = SCENES / "cbox" / "direct.xml"
     scene = load_and_compile(str(xml))
     n_lum, n_bsdf = scene.direct_light_samples, scene.direct_bsdf_samples
-    out, dt, rays, launches = timed_frames(
-        scene, "12", {"closest": 1 + n_bsdf, "anyhit": n_lum, "fetch": 0})
+    out, launches = checked_frame(scene, "12", {"closest": 1 + n_bsdf, "anyhit": n_lum,
+                                                "fetch": 0})
     rgb = out["rgb"].cpu().numpy()
     np.save(OUT_DIR / "cbox_direct_rgb.npy", rgb)
     third = scene.film_width // 3
@@ -467,13 +446,11 @@ def phase_direct(profiles):
                 f"{rgb.mean(axis=(0, 1)).tolist()}; checks {checks}")
     if not all(checks.values()):
         fail(f"phase 12: image checks failed {checks}")
-    profiles["cbox_direct"] = try_profile(frame(scene), dt, "12", "profile_cbox_direct.txt")
     small = load_and_compile(str(xml), spp=8, width=64, height=64, device="cpu")
-    return {"frame_s": dt, "rays_per_s": rays, "launches": launches,
-            "cuda_vs_cpu": cuda_vs_cpu(small, "12")}
+    return {"launches": launches, "cuda_vs_cpu": cuda_vs_cpu(small, "12")}
 
 
-def phase_aov(envlit_xml, profiles):
+def phase_aov(envlit_xml):
     """Phase 13: envlit under `aov`. Returns its numbers."""
     import numpy as np
     import torch
@@ -487,7 +464,7 @@ def phase_aov(envlit_xml, profiles):
     n_bitmaps = len(scene.bitmap_slots) * len(scene.bitmap_meta)
     # the AOV cast, then the nested path's casts and texel fetches (phase 7);
     # the AOV pass fetches no texel
-    out, dt, rays, launches = timed_frames(
+    out, launches = checked_frame(
         scene, "13", {"closest": 2 + n_iters, "anyhit": n_iters,
                       "fetch": 1 + n_iters * (n_bitmaps + 2)})
     aovs = out["aovs"]
@@ -523,10 +500,8 @@ def phase_aov(envlit_xml, profiles):
                 f"{n_len[hit].min().item():.6f}..{n_len[hit].max().item():.6f}; checks {checks}")
     if not all(checks.values()):
         fail(f"phase 13: AOV checks failed {checks}")
-    profiles["envlit_aov"] = try_profile(frame(scene), dt, "13", "profile_envlit_aov.txt")
     small = load_and_compile(str(xml), spp=4, width=64, height=64, device="cpu")
-    return {"frame_s": dt, "rays_per_s": rays, "launches": launches,
-            "cuda_vs_cpu": cuda_vs_cpu(small, "13")}
+    return {"launches": launches, "cuda_vs_cpu": cuda_vs_cpu(small, "13")}
 
 
 def phase_checkpoint(envlit_xml):
@@ -596,7 +571,6 @@ def phase_checkpoint(envlit_xml):
 TRAIN_STEPS = 5
 TRAIN_LR = 0.02          # Adam step of a material, in units of the sigmoid's argument
 EMITTER_LR = 0.1         # an emitter leaf's step relative to a material's
-GRAD_CHUNKS = (20, 21, 22)
 
 
 def lever_lrs(leaves):
@@ -633,20 +607,18 @@ def rel_l1(got, want):
     return float((got - want).abs().sum() / want.abs().sum().clamp(min=1e-30))
 
 
-def gradient_timing(stats):
-    """The seconds of a gradient in words: the primal (two passes only) and
-    the render under autograd with its backward."""
-    passes = (f"one pass of {stats['chunk']} lanes" if stats["chunks"] == 1 else
-              f"primal {stats['primal_s']:.4f} s, then {stats['chunks']} chunks of "
-              f"{stats['chunk']}")
-    return (f"{stats['primal_s'] + stats['backward_s']:.4f} s ({passes}; render under autograd "
-            f"and backward {stats['backward_s']:.4f} s), peak "
-            f"{(stats['peak_bytes'] or 0) / 2 ** 30:.3f} GiB")
+def gradient_passes(scene, chunk_size):
+    """The chunks image_grads renders for a gradient of `scene` in
+    `chunk_size`-lane chunks: one pass where the frame fits one chunk,
+    else the primal's chunks and then the re-render's. -> (every chunk,
+    the re-render's chunks)."""
+    from misaki_tpu_torch.render import driver
 
-
-def primal_chunks(stats):
-    """The primal render's chunks of a gradient: none in one pass."""
-    return 0 if stats["chunks"] == 1 else -(-BENCH_W * BENCH_H * BENCH_SPP // BENCH_CHUNK)
+    n = scene.film_width * scene.film_height * scene.spp
+    chunks = -(-n // driver.pick_chunk(chunk_size, scene.spp, n))
+    if chunks == 1:
+        return 1, 1
+    return -(-n // driver.pick_chunk(driver.DEFAULT_CHUNK, scene.spp, n)) + chunks, chunks
 
 
 def train_cbox(**kw):
@@ -658,7 +630,6 @@ def train_cbox(**kw):
     from misaki_tpu_torch.render.driver import render
     from misaki_tpu_torch.scene.compiler import load_and_compile
     from misaki_tpu_torch.scene.types import MC_REFL, SPEC_SLOT_COLS
-    from misaki_tpu_torch.tools.bench import quiet
 
     slot = slice(MC_REFL, MC_REFL + SPEC_SLOT_COLS)
     scene = load_and_compile(str(CBOX_XML), **kw).replace(max_depth=BENCH_DEPTH + 1)
@@ -680,10 +651,10 @@ def phase_train():
     import torch
 
     from misaki_tpu_torch.diff import get_leaves, replace_leaves
+    from misaki_tpu_torch.diff.backprop import GRAD_CHUNK
     from misaki_tpu_torch.diff.train import DEFAULT_TRAIN_LEAVES, lever_direction, train_step
     from misaki_tpu_torch.render.driver import render
     from misaki_tpu_torch.scene.types import MC_REFL, SPEC_SLOT_COLS
-    from misaki_tpu_torch.tools.bench import quiet
 
     slot = slice(MC_REFL, MC_REFL + SPEC_SLOT_COLS)
     scene, target, red = train_cbox(spp=BENCH_SPP, width=BENCH_W, height=BENCH_H)
@@ -693,24 +664,18 @@ def phase_train():
                      progress=quiet)
         return float(torch.mean((out["rgb"].double() - target.double()) ** 2))
 
-    # warm-up: the first gradient of a process pays for autograd's set-up
-    warm = scene.replace(spp=4, film_width=64, film_height=64)
-    train_step(warm, torch.zeros((64, 64, 3), device="cuda"), depth_cap=BENCH_DEPTH)
     values = {k: v.clone() for k, v in get_leaves(scene, DEFAULT_TRAIN_LEAVES).items()}
     lrs = lever_lrs(values)
     m1 = {k: torch.zeros_like(v, dtype=torch.float64) for k, v in values.items()}
     m2 = {k: torch.zeros_like(v, dtype=torch.float64) for k, v in values.items()}
     eps = {}
-    steps, losses, finite = [], [], True
+    losses, launches, finite = [], [], True
     for step in range(1, TRAIN_STEPS + 1):
-        stats = {}
         reset_counts()
-        t0 = time.perf_counter()
         loss, grads = train_step(replace_leaves(scene, values), target, seed=0,
-                                 depth_cap=BENCH_DEPTH, stats=stats)
+                                 depth_cap=BENCH_DEPTH)
         torch.cuda.synchronize()
-        step_s = time.perf_counter() - t0
-        launches = read_counts()
+        launches.append(read_counts())
         losses.append(float(loss))
         finite &= all(bool(torch.isfinite(g).all()) for g in grads.values())
         if step == 1:
@@ -723,13 +688,8 @@ def phase_train():
             upd = lrs[k] * (m1[k] / (1 - 0.9 ** step)) / (
                 torch.sqrt(m2[k] / (1 - 0.999 ** step)) + eps[k])
             values[k] = (values[k].double() - upd).float()
-        steps.append({"loss": float(loss), "step_s": step_s, **stats, "launches": launches})
-        phase("15", f"cbox train step {step}: loss {float(loss):.6e}; {step_s:.4f} s; "
-                    f"{gradient_timing(stats)}; launches {launches}")
+        phase("15", f"cbox train step {step}: loss {float(loss):.6e}; launches {launches[-1]}")
     final = loss_of(values)
-    profile = try_profile(lambda: train_step(replace_leaves(scene, values), target, seed=0,
-                                             depth_cap=BENCH_DEPTH),
-                          steps[-1]["step_s"], "15", "profile_cbox_train.txt", "step")
     g_mats = g0["materials"].cpu().numpy()
     red_grad = float(np.abs(g_mats[np.arange(slot.start, slot.stop), red]).max())
     # the directional FD of the step-0 gradient
@@ -744,35 +704,29 @@ def phase_train():
     _, g_cpu = train_step(small, small_target, seed=7, depth_cap=BENCH_DEPTH)
     _, g_cuda = train_step(small.to("cuda"), small_target.cuda(), seed=7, depth_cap=BENCH_DEPTH)
     l1 = {k: rel_l1(g_cuda[k], g_cpu[k]) for k in DEFAULT_TRAIN_LEAVES}
-    n_iters = BENCH_DEPTH
-    n_passes = primal_chunks(steps[0]) + steps[0]["chunks"]
-    want = {"closest": n_passes * (1 + n_iters), "anyhit": n_passes * n_iters, "fetch": 0,
-            "fetch_bwd": 0, "density": 0}
+    n_passes, _ = gradient_passes(scene, GRAD_CHUNK)
+    want = {"closest": n_passes * (1 + BENCH_DEPTH), "anyhit": n_passes * BENCH_DEPTH,
+            "fetch": 0, "fetch_bwd": 0, "density": 0}
     checks = {"loss_falls": final < losses[0], "grads_finite": finite,
               "red_wall_grad_nonzero": red_grad > 0.0,
               "fd_within_10pct": expected > 0 and abs(fd - expected)
               <= 0.1 * max(abs(fd), abs(expected)),
-              "launches": all(st["launches"] == want for st in steps),
+              "launches": all(n == want for n in launches),
               **{f"cuda_vs_cpu_{k}": v < 1e-4 for k, v in l1.items()}}
-    step_s = float(np.mean([st["step_s"] for st in steps]))
     phase("15", f"cbox 256x256 64 spp, depth cap {BENCH_DEPTH}, leaves {DEFAULT_TRAIN_LEAVES}: "
                 f"loss {losses[0]:.6e} before step 1, {final:.6e} after step {TRAIN_STEPS}; "
-                f"{step_s:.4f} s/step (primal {np.mean([s['primal_s'] for s in steps]):.4f}, "
-                f"render under autograd and backward "
-                f"{np.mean([s['backward_s'] for s in steps]):.4f}); "
                 f"red wall's largest slot gradient {red_grad:.3e}; directional FD {fd:.6e} "
-                f"against grad . dc {expected:.6e}; launches per step {steps[0]['launches']} "
+                f"against grad . dc {expected:.6e}; launches per step {launches[0]} "
                 f"expected {want}; 64x48 16 spp CUDA vs CPU relative L1 {l1}; checks {checks}")
     if not all(checks.values()):
         fail(f"phase 15: cbox training checks failed {checks}")
-    return {"losses": losses, "final_loss": final, "step_s": step_s, "steps": steps,
-            "profile": profile, "cuda_vs_cpu_l1": l1,
+    return {"losses": losses, "final_loss": final, "cuda_vs_cpu_l1": l1,
             "fd": fd, "grad_dot_dc": expected, "red_wall_grad": red_grad,
-            "launches": {k: sum(st["launches"][k] for st in steps) for k in want},
+            "launches": {k: sum(n[k] for n in launches) for k in want},
             "frames": TRAIN_STEPS}
 
 
-def captured_gradient(scene, names, loss_fn, stats=None):
+def captured_gradient(scene, names, loss_fn):
     """One image_grads at phase 7's reduced size (seed 7, depth cap
     CPU_CHECK_DEPTH) with the taps of every backward launch captured: ->
     (gradients, [(idx4, w4, grad_out, n)] on the CPU)."""
@@ -782,8 +736,7 @@ def captured_gradient(scene, names, loss_fn, stats=None):
     from misaki_tpu_torch.tools import profile_texel_fetch as ptf
 
     with ptf.captured_backward() as taps:
-        _, _, grads = image_grads(scene, names, loss_fn, seed=7, depth_cap=CPU_CHECK_DEPTH,
-                                  stats=stats)
+        _, _, grads = image_grads(scene, names, loss_fn, seed=7, depth_cap=CPU_CHECK_DEPTH)
     return grads, [tuple(x.cpu() if torch.is_tensor(x) else x for x in t) for t in taps]
 
 
@@ -817,12 +770,12 @@ def gap_anatomy(taps_cpu, taps_cuda, sizes):
 
 
 def phase_envlit_grad(envlit_xml, envlit):
-    """Phase 15 (b)-(d): one image_grads over bitmaps and env_rgb on envlit
+    """Phase 15 (b)-(c): one image_grads over bitmaps and env_rgb on envlit
     at the benchmark spec (launches, directional FDs, CUDA against the CPU
     at phase 7's reduced size, with the anatomy of their gap); the backward
     kernel against its twin and index_add_ on the taps of the gradient's
-    own launches and at 2^20 lanes on phase 6's cells; the peak memory by
-    chunk size. Returns its numbers."""
+    own launches and at 2^20 lanes on phase 6's cells. Returns its
+    numbers."""
     import torch
 
     from misaki_tpu_torch.diff import get_leaves, replace_leaves
@@ -831,24 +784,21 @@ def phase_envlit_grad(envlit_xml, envlit):
     from misaki_tpu_torch.render.integrator import n_bounce_iters
     from misaki_tpu_torch.scene.compiler import load_and_compile
     from misaki_tpu_torch.tools import profile_texel_fetch as ptf
-    from misaki_tpu_torch.tools.bench import quiet
 
     names = ("bitmaps", "env_rgb")
 
     def mean_loss(rgb):
         return rgb.mean()
 
-    stats = {}
     reset_counts()
-    loss, _, grads = image_grads(envlit, names, mean_loss, seed=0, depth_cap=BENCH_DEPTH,
-                                 stats=stats)
+    loss, _, grads = image_grads(envlit, names, mean_loss, seed=0, depth_cap=BENCH_DEPTH)
     torch.cuda.synchronize()
     launches = read_counts()
     n_iters = n_bounce_iters(envlit, BENCH_DEPTH)
     per_chunk = 1 + n_iters * (len(envlit.bitmap_slots) * len(envlit.bitmap_meta) + 2)
-    n_passes = primal_chunks(stats) + stats["chunks"]
+    n_passes, n_chunks = gradient_passes(envlit, GRAD_CHUNK)
     want = {"closest": n_passes * (1 + n_iters), "anyhit": n_passes * n_iters,
-            "fetch": n_passes * per_chunk, "fetch_bwd": stats["chunks"] * per_chunk,
+            "fetch": n_passes * per_chunk, "fetch_bwd": n_chunks * per_chunk,
             "density": 0}
 
     def loss_at(values):
@@ -869,8 +819,7 @@ def phase_envlit_grad(envlit_xml, envlit):
                      "ok": expected > 0 and abs(fd - expected) <= 0.05 * abs(expected)}
     # the same gradient on the CPU and on the card at phase 7's reduced size
     small = load_and_compile(str(envlit_xml), spp=8, width=48, height=36, device="cpu")
-    cpu = {}
-    g_cpu, taps_cpu = captured_gradient(small, names, mean_loss, stats=cpu)
+    g_cpu, taps_cpu = captured_gradient(small, names, mean_loss)
     g_cuda, taps_cuda = captured_gradient(small.to("cuda"), names, mean_loss)
     l1 = {k: rel_l1(g_cuda[k], g_cpu[k]) for k in names}
     anatomy = gap_anatomy(taps_cpu, taps_cuda, {
@@ -881,10 +830,9 @@ def phase_envlit_grad(envlit_xml, envlit):
               **{f"fd_{k}": v["ok"] for k, v in fds.items()},
               **{f"cuda_vs_cpu_{k}": v < 1e-4 for k, v in l1.items()}}
     phase("15", f"envlit 256x256 64 spp gradient of the image mean over {names}: "
-                f"{gradient_timing(stats)}; launches {launches} expected {want}; "
+                f"launches {launches} expected {want}; "
                 f"directional FD {fds}; 48x36 8 spp CUDA vs CPU (depth cap {CPU_CHECK_DEPTH}) "
-                f"relative L1 {l1} (the CPU "
-                f"gradient {cpu['primal_s'] + cpu['backward_s']:.1f} s); the gap's anatomy "
+                f"relative L1 {l1}; the gap's anatomy "
                 f"(relative L1 of the twin's sums from the CUDA taps or the CUDA grad_out, "
                 f"the other half the CPU's) {anatomy}; checks {checks}")
     if not all(checks.values()):
@@ -927,20 +875,9 @@ def phase_envlit_grad(envlit_xml, envlit):
                     f"index_add_allclose={c['index_add_allclose']}")
     if not (on_path["allclose"] and all(c["allclose"] for c in bwd.values())):
         fail("phase 15: the texel-fetch backward kernel disagrees with its plain twin")
-
-    # (d) the peak memory and time by chunk size
-    by_chunk = {}
-    for k in GRAD_CHUNKS:
-        st = {}
-        image_grads(envlit, names, mean_loss, seed=0, depth_cap=BENCH_DEPTH,
-                    chunk_size=1 << k, stats=st)
-        by_chunk[k] = st
-        phase("15", f"envlit gradient with 2^{k}-lane chunks: {gradient_timing(st)}")
-    phase("15", f"default chunk GRAD_CHUNK = 2^{GRAD_CHUNK.bit_length() - 1}")
-    return {"loss": float(loss), "stats": stats, "launches": launches, "fd": fds,
+    return {"loss": float(loss), "launches": launches, "fd": fds,
             "cuda_vs_cpu_l1": l1, "gap_anatomy": anatomy, "backward_on_path": on_path,
-            "backward_kernel": bwd,
-            "by_chunk": by_chunk, "frames": 1}
+            "backward_kernel": bwd, "frames": 1}
 
 
 TEAPOT_DEPTH = 8        # tools/flagship_renders.py's depth cap of the teapot
@@ -966,27 +903,6 @@ def medium_masks(scene):
     si = inter.compute_interaction(scene, hit, ray["o"], ray["d"], ray["wavelengths"])
     med = si["med_int"].reshape(H, W)
     return {m: interior(med == m).cpu().numpy() for m in range(scene.media.kind.shape[0])}
-
-
-def closest_by_segment(events, per_chunk):
-    """The closest-hit kernel's device time per launch (ms) by its place in
-    a volpath chunk of `per_chunk` launches (the camera cast, then
-    transmittance segments 1-4 and the next cast of each iteration), from a
-    profile's events. None where the profile holds no whole chunks."""
-    from torch.autograd import DeviceType
-
-    ev = sorted((e for e in events if getattr(e, "device_type", None) == DeviceType.CUDA
-                 and "closest_hit" in e.name), key=lambda e: e.time_range.start)
-    if not ev or len(ev) % per_chunk:
-        return None
-    names = ["camera"] + [f"segment {k}" for k in range(1, 5)] + ["next cast"]
-    sums = {k: [0.0, 0] for k in names}
-    for i, e in enumerate(ev):
-        k = i % per_chunk
-        name = names[0] if k == 0 else names[1 + (k - 1) % 5]
-        sums[name][0] += e.time_range.elapsed_us() / 1e3
-        sums[name][1] += 1
-    return {k: t / c for k, (t, c) in sums.items() if c}
 
 
 def transmittance_fd(scene, leaf, step_rel=0.01, n=1 << 16, seed=12):
@@ -1061,22 +977,13 @@ def media_gradient(scene, names, label, chunk_size, fd_leaves):
     from misaki_tpu_torch.diff import get_leaves, replace_leaves
     from misaki_tpu_torch.diff.backprop import image_grads
     from misaki_tpu_torch.render.driver import render
-    from misaki_tpu_torch.tools.bench import quiet
 
-    # warm-up: the first gradient of a scene pays for autograd's set-up
-    image_grads(scene.replace(spp=1, film_width=32, film_height=32), names,
-                lambda r: r.mean(), seed=7, depth_cap=BENCH_DEPTH)
-    torch.cuda.synchronize()
-    stats = {}
     reset_counts()
-    t0 = time.perf_counter()
     _, _, grads = image_grads(scene, names, lambda r: r.mean(), seed=7, depth_cap=BENCH_DEPTH,
-                              chunk_size=chunk_size, stats=stats)
+                              chunk_size=chunk_size)
     torch.cuda.synchronize()
-    grad_s = time.perf_counter() - t0
     launches = read_counts()
-    n_lanes = scene.film_width * scene.film_height * scene.spp
-    passes = stats["chunks"] + (0 if stats["chunks"] == 1 else -(-n_lanes // BENCH_CHUNK))
+    passes, chunks = gradient_passes(scene, chunk_size)
     per_pass = 1 + 5 * BENCH_DEPTH
     want = {"closest": passes * per_pass, "anyhit": 0, "fetch": 0, "fetch_bwd": 0, "density": 0}
     finite = all(bool(torch.isfinite(g).all()) for g in grads.values())
@@ -1096,10 +1003,10 @@ def media_gradient(scene, names, label, chunk_size, fd_leaves):
     checks = {"grads_finite": finite, "launches": launches == want,
               **{f"fd_{k}": r[2] and r[1] > 0 and abs(r[0] - r[1]) <= 0.1 * abs(r[1])
                  for k, r in fds.items()}}
-    one_pass = stats["chunks"] == 1
+    one_pass = chunks == 1
+    n_lanes = scene.film_width * scene.film_height * scene.spp
     phase("16", f"{label} {scene.film_width}x{scene.film_height} {scene.spp} spp gradient of the "
-                f"image mean over {names}, depth cap {BENCH_DEPTH}: {grad_s:.4f} s, "
-                f"{gradient_timing(stats)}"
+                f"image mean over {names}, depth cap {BENCH_DEPTH}: {passes} chunks rendered"
                 + ("" if one_pass else f" (the frame's {n_lanes} lanes exceed one pass of "
                                        f"{chunk_size}: image_grads' chunked path)")
                 + f"; launches {launches} expected {want}; |g| "
@@ -1110,9 +1017,8 @@ def media_gradient(scene, names, label, chunk_size, fd_leaves):
                   f"(reported, not checked); checks {checks}")
     if not all(checks.values()):
         fail(f"phase 16: {label} gradient checks failed {checks}")
-    return {"grad_s": grad_s, **stats, "launches": launches, "transmittance_fd": fds,
-            "image_fd": image_fd, "image_grad_dot_step": image_gd, "one_pass": one_pass,
-            "frames": 1}
+    return {"launches": launches, "transmittance_fd": fds, "image_fd": image_fd,
+            "image_grad_dot_step": image_gd, "one_pass": one_pass, "frames": 1}
 
 
 def phase_volpath():
@@ -1128,41 +1034,18 @@ def phase_volpath():
     from misaki_tpu_torch.render import driver
     from misaki_tpu_torch.scene.compiler import load_and_compile
     from misaki_tpu_torch.scenes.volume import assets as volume_assets
-    from misaki_tpu_torch.tools.bench import quiet
 
     out = {}
     # ---- (a) the teapot stand-in at its declared spec
-    t0 = time.perf_counter()
     tp = load_and_compile(str(TEAPOT_XML))
     phase("16", f"teapot {TEAPOT_XML.relative_to(ROOT)}: {tp.n_faces} faces, "
                 f"{tp.cluster.n_clusters} clusters, BSDF kinds {tp.bsdf_kinds}, media "
-                f"{tp.media.kind.shape[0]}, max_depth {tp.max_depth}; compile "
-                f"{time.perf_counter() - t0:.2f} s")
-    per_chunk = 1 + 5 * TEAPOT_DEPTH
-    warm = load_and_compile(str(TEAPOT_XML), spp=4, width=128, height=72)
-    frame_out, dt, rate, launches = timed_frames(
-        tp, "16", {"closest": per_chunk, "anyhit": 0, "fetch": 0}, n_frames=1, warmup=warm,
+                f"{tp.media.kind.shape[0]}, max_depth {tp.max_depth}")
+    frame_out, launches = checked_frame(
+        tp, "16", {"closest": 1 + 5 * TEAPOT_DEPTH, "anyhit": 0, "fetch": 0},
         depth_cap=TEAPOT_DEPTH)
     rgb = frame_out["rgb"].cpu().numpy()
     np.save(OUT_DIR / "teapot_volpath_rgb.npy", rgb)
-    # a profiled 4 spp frame at the declared resolution (4 of the 113
-    # chunks: the 16 spp frame's 333,566 launches took 147 s to profile)
-    part = tp.replace(spp=4)
-
-    def part_frame():
-        driver.render(part, seed=12, chunk_size=BENCH_CHUNK, depth_cap=TEAPOT_DEPTH,
-                      progress=quiet)
-
-    t0 = time.perf_counter()
-    part_frame()
-    torch.cuda.synchronize()
-    part_s = time.perf_counter() - t0
-    prof = try_profile(part_frame, part_s, "16", "profile_teapot.txt",
-                       closest_per_chunk=per_chunk)
-    by_segment = prof and prof["closest_ms_by_segment"]
-    phase("16", "teapot closest-hit device time per launch by its place in the chunk (ms): "
-                + (", ".join(f"{k} {v:.4f}" for k, v in by_segment.items()) if by_segment
-                   else "not measured"))
     # the media's pixels against the same render with the media's scale 0
     small = load_and_compile(str(TEAPOT_XML), spp=16, width=160, height=90)
     clear = replace_leaves(small, {"medium_scale": small.media.scale * 0.0})
@@ -1182,22 +1065,16 @@ def phase_volpath():
     if not all(checks.values()):
         fail(f"phase 16: teapot image checks failed {checks}")
     small_cpu = load_and_compile(str(TEAPOT_XML), spp=4, width=64, height=36, device="cpu")
-    out["teapot"] = {"frame_s": dt, "rays_per_s": rate, "launches": launches,
-                     "spp16_frame_s": part_s, "spp16_profile": prof,
-                     "closest_ms_by_segment": by_segment, "media_change": diff,
+    out["teapot"] = {"launches": launches, "media_change": diff,
                      "cuda_vs_cpu": cuda_vs_cpu(small_cpu, "16", CPU_CHECK_DEPTH)}
 
     # ---- (b) the grid-volume scene at the benchmark spec
-    t0 = time.perf_counter()
     vol_xml = volume_assets.prepared(VOLUME_BUILD)
     vol = load_and_compile(str(vol_xml))
     phase("16", f"volume {vol_xml.relative_to(ROOT)}: {vol.n_faces} faces, grid "
-                f"{vol.volume_meta[0][1:4]}, {vol.volumes.shape[0]} density texels; assets and "
-                f"compile {time.perf_counter() - t0:.2f} s")
-    warm = vol.replace(spp=1, film_width=64, film_height=64)
-    frame_out, dt_v, rate_v, launches_v = timed_frames(
-        vol, "16", {"closest": 1 + 5 * BENCH_DEPTH, "anyhit": 0, "fetch": 0}, n_frames=1,
-        warmup=warm)
+                f"{vol.volume_meta[0][1:4]}, {vol.volumes.shape[0]} density texels")
+    frame_out, launches_v = checked_frame(
+        vol, "16", {"closest": 1 + 5 * BENCH_DEPTH, "anyhit": 0, "fetch": 0})
     rgb_v = frame_out["rgb"].cpu().numpy()
     np.save(OUT_DIR / "volume_rgb.npy", rgb_v)
     checks = {"finite": bool(np.isfinite(rgb_v).all()), "non_negative": bool(rgb_v.min() >= 0),
@@ -1205,16 +1082,7 @@ def phase_volpath():
     phase("16", f"volume image mean {rgb_v.mean(axis=(0, 1)).tolist()}; checks {checks}")
     if not all(checks.values()):
         fail(f"phase 16: volume image checks failed {checks}")
-    # the kernel launches of one chunk (64x64 x 16 spp, one chunk: a chunk's
-    # launches do not depend on its lanes), times 4 chunks for the frame
-    one = load_and_compile(str(vol_xml), spp=16, width=64, height=64)
-    t0 = time.perf_counter()
-    frame(one)()
-    torch.cuda.synchronize()
-    prof_v = try_profile(frame(one), time.perf_counter() - t0, "16", "profile_volume.txt",
-                         what="chunk")
-    out["volume"] = {"frame_s": dt_v, "rays_per_s": rate_v, "launches": launches_v,
-                     "chunk_profile": prof_v,
+    out["volume"] = {"launches": launches_v,
                      "cuda_vs_cpu": cuda_vs_cpu(load_and_compile(
                          str(vol_xml), spp=4, width=64, height=64, device="cpu"), "16")}
 
@@ -1230,7 +1098,6 @@ def phase_volpath():
     for label, xml, names in (("teapot", TEAPOT_XML, media_names),
                               ("volume", vol_xml, ("volumes",))):
         sc = load_and_compile(str(xml), spp=8, width=48, height=27, device="cpu")
-        t0 = time.perf_counter()
         (_, rgb_a, g_a), (_, rgb_b, g_b) = (
             image_grads(s, names, lambda r: r.mean(), seed=7, depth_cap=CPU_CHECK_DEPTH)
             for s in (sc, sc.to("cuda")))
@@ -1239,8 +1106,7 @@ def phase_volpath():
         # went elsewhere), and how much of the L1 its 10 largest entries hold
         rel = ((rgb_b.cpu() - rgb_a).abs() / rgb_a.abs().clamp(min=1e-3)).amax(dim=-1)
         diff = torch.cat([(g_b[k].cpu() - g_a[k]).abs().reshape(-1) for k in names])
-        anatomy[label] = {"s": time.perf_counter() - t0,
-                          "pixels_off_1e-4": int((rel > 1e-4).sum()),
+        anatomy[label] = {"pixels_off_1e-4": int((rel > 1e-4).sum()),
                           "image_l1": rel_l1(rgb_b, rgb_a),
                           "top10_share": float(diff.topk(min(10, diff.numel())).values.sum()
                                                / diff.sum().clamp(min=1e-30))}
@@ -1255,42 +1121,32 @@ def phase_volpath():
     return out
 
 
-def ppm_frames(scene, label, n_frames=N_FRAMES, warmup=None):
-    """A warm-up frame (of `warmup`, else of `scene`), then `n_frames` timed
-    frames of a photon-mapping `scene` through render() on cuda, seeds
-    varied, with every launch count set to 0 just before them and read just
-    after; fails unless they are n_frames x iterations x the structure's
-    `ppm.launches_per_iteration`. Returns (last output, seconds per frame,
-    launches)."""
+def checked_ppm_frame(scene, label):
+    """One frame of a photon-mapping `scene` through render() on cuda, with
+    every launch count set to 0 just before it and read just after; fails
+    unless they are iterations x the structure's
+    `ppm.launches_per_iteration`. Returns (its output, its launches)."""
     import torch
 
     from misaki_tpu_torch.render import ppm
     from misaki_tpu_torch.render.driver import render
     from misaki_tpu_torch.utils import tracing
-    from misaki_tpu_torch.tools.bench import quiet
 
-    render(scene if warmup is None else warmup, seed=0, depth_cap=BENCH_DEPTH, progress=quiet)
-    torch.cuda.synchronize()
     reset_counts()
-    t0 = time.perf_counter()
-    for i in range(n_frames):
-        out = render(scene, seed=i + 1, depth_cap=BENCH_DEPTH, progress=quiet)
+    out = render(scene, seed=1, depth_cap=BENCH_DEPTH, progress=quiet)
     torch.cuda.synchronize()
-    dt = (time.perf_counter() - t0) / n_frames
     launches = read_counts()
     budget, iters = ppm.depth_budget(scene, BENCH_DEPTH), scene.ppm_iterations
-    want = {"fetch_bwd": 0, **{k: n_frames * iters * v for k, v in
+    want = {"fetch_bwd": 0, **{k: iters * v for k, v in
                                ppm.launches_per_iteration(scene, budget).items()}}
-    photons = ppm.photon_count(scene)
-    phase(label, f"{scene.film_width}x{scene.film_height}, {scene.integrator}, {photons} photons "
-                 f"x {iters} iterations, depth budget {budget}: {dt:.4f} s/frame, "
-                 f"{photons * iters / dt:.6e} photons/s, {iters / dt:.4f} iterations/s "
-                 f"({n_frames} frames); launches {launches} expected {want}")
+    phase(label, f"{scene.film_width}x{scene.film_height}, {scene.integrator}, "
+                 f"{ppm.photon_count(scene)} photons x {iters} iterations, depth budget "
+                 f"{budget}: launches {launches} expected {want}")
     if launches != want:
         fail(f"phase {label}: kernel launch counts {launches} != expected {want}")
     # the CUDA kernels of those estimates, for the kernels line
     launches["density_cuda"] = tracing.launches["density_cuda"]
-    return out, dt, launches
+    return out, launches
 
 
 def luminance(rgb):
@@ -1327,30 +1183,24 @@ def density_check(args, grid, calls=10):
     """The density estimate's grid kernel against its twin on one photon
     depth's inputs over `grid` (tools/profile_ppm_density.py `check`: counts
     equal and phi allclose in each of `calls` calls, phi equal to the bit
-    between calls); the kernel's and the dense kernel's device times, in
-    turns (the port, the dense kernel twice, the port), the twin's, the CUDA
-    launches of one estimate, the pairs tested and the bounds (`bounds`: the
+    between calls); the kernel's and the twin's device times, the CUDA
+    launches of one estimate, the pairs tested and the bound (`bounds`: the
     bytes the function needs read once and its outputs written once against
-    the FP32 operations of the alive photons and the passing pairs; the
-    dense form's beside it)."""
+    the FP32 operations of the alive photons and the passing pairs)."""
     from misaki_tpu_torch.render import ppm
     from misaki_tpu_torch.tools import profile_ppm_density as pd
     from misaki_tpu_torch.tools.profile_cluster_frame import device_ms
 
     sppm_mode = args[-1]
     ph, vps = ppm.pack_inputs(*args[:-1])
-    lib, levers = ppm.build(), pd.load_levers()
+    lib = ppm.build()
     want = ppm.density_plain(*args)
     res = pd.check(lambda: ppm.density_launch(lib, ph, vps, sppm_mode, grid), want, calls)
-    res["dense_kernel"] = pd.check(lambda: pd.dense_launch(levers, ph, vps, sppm_mode), want, 1)
     stats = {}
     ppm.density_launch(lib, ph, vps, sppm_mode, grid, stats=stats, pair_tests=True)
     res.update(pd.bounds(args, want), grid=list(grid.dims), cuda_launches=stats["cuda_launches"],
-               pair_tests=int(stats["pair_tests"].item()))
-    port, dense = (lambda: ppm.density_launch(lib, ph, vps, sppm_mode, grid),
-                  lambda: pd.dense_launch(levers, ph, vps, sppm_mode))
-    times = [device_ms(fn, 10) for fn in (port, dense, dense, port)]
-    res.update(ms_turns=times, ms=(times[0] + times[3]) / 2, dense_ms=(times[1] + times[2]) / 2,
+               pair_tests=int(stats["pair_tests"].item()),
+               ms=device_ms(lambda: ppm.density_launch(lib, ph, vps, sppm_mode, grid), 10),
                plain_ms=device_ms(lambda: ppm.density_plain(*args), 2))
     return res
 
@@ -1366,7 +1216,6 @@ def phase_ppm(envlit):
     from misaki_tpu_torch.scene.compiler import load_and_compile
     from misaki_tpu_torch.scenes.materials import assets as materials_assets
     from misaki_tpu_torch.tools import profile_ppm_density as pd
-    from misaki_tpu_torch.tools.bench import quiet
 
     res = {}
     ref = render(load_and_compile(str(CBOX_XML), spp=BENCH_SPP, width=BENCH_W, height=BENCH_H)
@@ -1378,8 +1227,7 @@ def phase_ppm(envlit):
                                    ("17b", "photonmapper", (0.25, 0.85))):
         xml = SCENES / "cbox" / f"{integrator}.xml"
         scene = load_and_compile(str(xml), width=BENCH_W, height=BENCH_H)
-        warm = scene.replace(film_width=64, film_height=64, ppm_photons=1 << 14)
-        out, dt, launches = ppm_frames(scene, label, warmup=warm)
+        out, launches = checked_ppm_frame(scene, label)
         rgb, alpha = out["rgb"].cpu().numpy(), out["alpha"].cpu().numpy()
         third = BENCH_W // 3
         rel, corr = against_path(rgb, ref, 4)
@@ -1395,25 +1243,8 @@ def phase_ppm(envlit):
         if not all(checks.values()):
             fail(f"phase {label}: image checks failed {checks}")
         np.save(OUT_DIR / f"cbox_{integrator}_rgb.npy", rgb)
-        res[f"cbox_{integrator}"] = {"frame_s": dt, "launches": launches,
-                                     "photons_per_s": ppm.photon_count(scene)
-                                     * scene.ppm_iterations / dt,
-                                     "iterations_per_s": scene.ppm_iterations / dt,
-                                     "mean_vs_path": rel, "corr_vs_path": corr}
-        if integrator == "sppm":
-            # device busy share and top kernels of one iteration (profiling
-            # costs about 0.4 ms a launch: a frame is about 80k launches)
-            one = scene.replace(ppm_iterations=1)
-            render(one, seed=31, depth_cap=BENCH_DEPTH, progress=quiet)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            render(one, seed=32, depth_cap=BENCH_DEPTH, progress=quiet)
-            torch.cuda.synchronize()
-            one_s = time.perf_counter() - t0
-            res["cbox_sppm"]["iteration_s"] = one_s
-            res["cbox_sppm"]["profile"] = try_profile(
-                lambda: render(one, seed=33, depth_cap=BENCH_DEPTH, progress=quiet), one_s,
-                label, "profile_cbox_sppm.txt", what="iteration")
+        res[f"cbox_{integrator}"] = {"launches": launches, "mean_vs_path": rel,
+                                     "corr_vs_path": corr}
         # the first splatted depth's inputs to the density estimate and the
         # frame's grid, for (e)
         captured[integrator] = pd.capture(integrator, width=BENCH_W, height=BENCH_H,
@@ -1422,8 +1253,7 @@ def phase_ppm(envlit):
     # (c) envlit under sppm: envmap photon emission, bitmap visible points
     env = envlit.replace(integrator="sppm", ppm_photons=PPM_PHOTONS, ppm_iterations=PPM_ITERS,
                          max_depth=BENCH_DEPTH + 1)
-    out, dt, launches = ppm_frames(env, "17c", warmup=env.replace(
-        film_width=64, film_height=64, ppm_photons=1 << 14))
+    out, launches = checked_ppm_frame(env, "17c")
     rgb = out["rgb"].cpu().numpy()
     top = rgb[: rgb.shape[0] // 8]
     env_ref = render(envlit.replace(spp=16, max_depth=BENCH_DEPTH + 1), seed=9,
@@ -1442,10 +1272,7 @@ def phase_ppm(envlit):
     if not all(checks.values()):
         fail(f"phase 17c: image checks failed {checks}")
     np.save(OUT_DIR / "envlit_sppm_rgb.npy", rgb)
-    res["envlit_sppm"] = {"frame_s": dt, "launches": launches,
-                          "photons_per_s": PPM_PHOTONS * PPM_ITERS / dt,
-                          "iterations_per_s": PPM_ITERS / dt, "mean_vs_path": rel,
-                          "corr_vs_path": corr}
+    res["envlit_sppm"] = {"launches": launches, "mean_vs_path": rel, "corr_vs_path": corr}
 
     # (d) the gallery under sppm, reduced: glossy visible points (the
     # plain pair path), point-light and constant-environment photons
@@ -1461,8 +1288,7 @@ def phase_ppm(envlit):
 
     ppm._density_glossy = count_glossy
     try:
-        out, dt, launches = ppm_frames(gallery, "17d", n_frames=1, warmup=gallery.replace(
-            film_width=32, film_height=32, ppm_photons=2048, ppm_iterations=1))
+        out, launches = checked_ppm_frame(gallery, "17d")
     finally:
         ppm._density_glossy = glossy
     rgb = out["rgb"].cpu().numpy()
@@ -1474,7 +1300,7 @@ def phase_ppm(envlit):
                  f"checks {checks}")
     if not all(checks.values()):
         fail(f"phase 17d: image checks failed {checks}")
-    res["gallery_sppm"] = {"frame_s": dt, "launches": launches, "glossy_vps": glossy_vps}
+    res["gallery_sppm"] = {"launches": launches, "glossy_vps": glossy_vps}
 
     # (e) the density estimate's grid kernel against its twin on (a)'s and
     # (b)'s first splatted depth and on the adversarial mix
@@ -1492,15 +1318,11 @@ def phase_ppm(envlit):
                      f"{dens['bit_equal_between_calls']} (max abs err {dens['max_abs_err']:.3e}, "
                      f"{dens['tolerance_used']:.3f} of the tolerance used); "
                      f"{dens['cuda_launches']} CUDA launches an estimate, {dens['pair_tests']} "
-                     f"pairs tested (the dense form {dens['dense_pairs']}); kernel_ms="
-                     f"{dens['ms']:.4f} dense_kernel_ms={dens['dense_ms']:.4f} (in turns "
-                     f"{', '.join(f'{t:.4f}' for t in dens['ms_turns'])}) plain_ms="
+                     f"pairs tested; kernel_ms={dens['ms']:.4f} plain_ms="
                      f"{dens['plain_ms']:.4f} bound_ms={dens['bound_ms']:.6f} ({dens['bound_by']}, "
                      f"{dens['bytes']} bytes needed, {dens['alive_photons']} photons alive; "
-                     f"{dens['bound_ms'] / dens['ms']:.4f} of it) dense_form_bound_ms="
-                     f"{dens['dense_bound_ms']:.4f} ({dens['dense_bytes']} bytes; the dense "
-                     f"kernel at {dens['dense_bound_ms'] / dens['dense_ms']:.4f} of it)")
-        if not (dens["ok"] and dens["dense_kernel"]["ok"]):
+                     f"{dens['bound_ms'] / dens['ms']:.4f} of it)")
+        if not dens["ok"]:
             fail(f"phase 17e: the density estimate disagrees with its plain twin on {name}")
         res["density_kernel"][name] = dens
 
@@ -1545,37 +1367,22 @@ def phase_ppm(envlit):
     return res
 
 
-SHARD_REPS = 10   # the film's all-reduce calls timed in phase 18 (a)
-
-
-def timed(fn):
-    """-> (fn(), seconds), the card synchronised at both ends."""
-    import torch
-
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out = fn()
-    torch.cuda.synchronize()
-    return out, time.perf_counter() - t0
-
-
 def phase_sharding(smi_line):
     """Phase 18: parallel/sharding.py on the one card. (a) world size 1 over
     NCCL on cuda:0: a render_sharded frame of cbox at the benchmark spec
     beside a render() frame of the same seed (the same chunks, so the films
     equal to the bit; else the largest difference, failing above rtol
-    1e-6), the sharded frame's launches as phase 4's, the film's all-reduce
-    timed by CUDA events; (b) train_step_sharded at world size 1 beside
-    train_step on phase 15 (a)'s step: the loss to rtol 1e-6, every leaf's
-    gradient within 1e-5 relative L1, the launches of one pass; (c)
-    functional only, two processes that share the card over gloo with CUDA
-    tensors: render_sharded on a (2,) mesh and render_sharded_2d on (1, 2)
-    and (2, 1) against (a)'s film (rtol 1e-5, atol 1e-6 of its largest
-    value), train_step_sharded on (2,) against (b)'s gradients (1e-4
-    relative L1), in one autograd chunk a rank and in 2^20-lane chunks
-    (image_grads' primal, the film's sum, the chunked re-render), every
-    rank's results the same, then dryrun_multichip(2). Returns its
-    numbers."""
+    1e-6), the sharded frame's launches as phase 4's; (b)
+    train_step_sharded at world size 1 beside train_step on phase 15 (a)'s
+    step: the loss to rtol 1e-6, every leaf's gradient within 1e-5 relative
+    L1, the launches of one pass; (c) two processes that share the card
+    over gloo with CUDA tensors: render_sharded on a (2,) mesh and
+    render_sharded_2d on (1, 2) and (2, 1) against (a)'s film (rtol 1e-5,
+    atol 1e-6 of its largest value), train_step_sharded on (2,) against
+    (b)'s gradients (1e-4 relative L1), in one autograd chunk a rank and in
+    2^20-lane chunks (image_grads' primal, the film's sum, the chunked
+    re-render), every rank's results the same, then dryrun_multichip(2).
+    Returns its numbers."""
     import tempfile
 
     import torch
@@ -1584,10 +1391,8 @@ def phase_sharding(smi_line):
     from misaki_tpu_torch import graft_entry
     from misaki_tpu_torch.diff.train import DEFAULT_TRAIN_LEAVES, train_step
     from misaki_tpu_torch.parallel import sharding as sh
-    from misaki_tpu_torch.render import film as film_mod
     from misaki_tpu_torch.render.driver import render
     from misaki_tpu_torch.render.integrator import n_bounce_iters
-    from misaki_tpu_torch.tools.bench import quiet
 
     scene, target, _ = train_cbox(spp=BENCH_SPP, width=BENCH_W, height=BENCH_H)
     kw = dict(seed=1, depth_cap=BENCH_DEPTH)
@@ -1597,163 +1402,89 @@ def phase_sharding(smi_line):
     want = {"closest": n_chunks * (1 + n_iters), "anyhit": n_chunks * n_iters, **none}
     want_step = {"closest": 1 + n_iters, "anyhit": n_iters, **none}   # one autograd pass
 
-    def train(name):
-        if name == "sharded":
-            return sh.train_step_sharded(mesh, scene, target, seed=0, depth_cap=BENCH_DEPTH)
-        return train_step(scene, target, seed=0, depth_cap=BENCH_DEPTH)
-
     with tempfile.TemporaryDirectory() as tmp:
         dev = sh.init_distributed(f"file://{tmp}/store", 1, 0, "nccl", device="cuda")
         try:
             mesh = sh.make_mesh(1, dev)
-            # (a); the warm-up frame makes NCCL's communicator (first all-reduce)
-            sh.render_sharded(mesh, scene, seed=0, depth_cap=BENCH_DEPTH, chunk_size=BENCH_CHUNK)
-            # in turns, sharded, render(), render(), sharded (one frame of
-            # each is host noise: on an H100 80GB HBM3 0.345 against 0.239 s
-            # in one run, 0.337 against 0.365 s in another); the launches of
-            # the first
-            frames, films = {"sharded": [], "render": []}, {}
-            for i, name in enumerate(("sharded", "render", "render", "sharded")):
-                if i == 0:
-                    reset_counts()
-                films[name], t = timed(
-                    lambda: sh.render_sharded(mesh, scene, chunk_size=BENCH_CHUNK, **kw)
-                    if name == "sharded" else
-                    render(scene, chunk_size=BENCH_CHUNK, progress=quiet, **kw)["film"])
-                if i == 0:
-                    launches = read_counts()
-                frames[name].append(t)
-            film, ref = films["sharded"], films["render"]
-            shard_s, one_s = (sum(frames[k]) / 2 for k in ("sharded", "render"))
+            # (a)
+            reset_counts()
+            film = sh.render_sharded(mesh, scene, chunk_size=BENCH_CHUNK, **kw)
+            torch.cuda.synchronize()
+            launches = read_counts()
+            ref = render(scene, chunk_size=BENCH_CHUNK, progress=quiet, **kw)["film"]
             equal = bool(torch.equal(film, ref))
             film_diff = float((film - ref).abs().max())
-            flat = film_mod.new_film_flat(BENCH_H, BENCH_W, 5, scene.filter_type,
-                                          scene.filter_stddev, device=dev)
-            sh.mesh_sum(flat, mesh)
-            ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-            torch.cuda.synchronize()
-            ev0.record()
-            for _ in range(SHARD_REPS):
-                sh.mesh_sum(flat, mesh)
-            ev1.record()
-            torch.cuda.synchronize()
-            reduce_ms = ev0.elapsed_time(ev1) / SHARD_REPS
-            reduce_bytes = flat.numel() * flat.element_size()
             checks = {"film_equal_or_rtol_1e-6": equal or bool(
                           torch.allclose(film, ref, rtol=1e-6, atol=0.0)),
                       "launches": launches == want}
             phase("18a", f"world size 1 over nccl on {dev}: cbox {BENCH_W}x{BENCH_H} "
                          f"{BENCH_SPP} spp, depth cap {BENCH_DEPTH}, {n_chunks} chunks of "
-                         f"{BENCH_CHUNK}: render_sharded {shard_s:.4f} s/frame, render() "
-                         f"{one_s:.4f} s/frame (2 each, in turns); films equal to the bit "
-                         f"{equal} (largest "
-                         f"difference {film_diff:.3e}); launches {launches} expected {want}; "
-                         f"the film's all-reduce {reduce_bytes} bytes, {reduce_ms:.4f} ms "
-                         f"(CUDA events, mean of {SHARD_REPS}); {smi_line}")
+                         f"{BENCH_CHUNK}: render_sharded against render(), films equal to the "
+                         f"bit {equal} (largest difference {film_diff:.3e}); launches "
+                         f"{launches} expected {want}; checks {checks}")
             if not all(checks.values()):
                 fail(f"phase 18a: checks failed {checks}")
 
-            # (b) after a small warm-up step of the sharded path, in turns:
-            # sharded, single, single, sharded
-            sh.train_step_sharded(mesh, scene.replace(spp=4, film_width=64, film_height=64),
-                                  torch.zeros((64, 64, 3), device=dev), depth_cap=BENCH_DEPTH)
-            secs, res = {"sharded": [], "single": []}, {}
-            for i, name in enumerate(("sharded", "single", "single", "sharded")):
-                if i == 0:
-                    reset_counts()
-                res[name], t = timed(lambda: train(name))
-                if i == 0:
-                    train_launches = read_counts()
-                secs[name].append(t)
+            # (b)
+            reset_counts()
+            l_sh, g_sh = sh.train_step_sharded(mesh, scene, target, seed=0,
+                                               depth_cap=BENCH_DEPTH)
+            torch.cuda.synchronize()
+            train_launches = read_counts()
+            l_1, g_1 = train_step(scene, target, seed=0, depth_cap=BENCH_DEPTH)
         finally:
             dist.destroy_process_group()
-    (l_sh, g_sh), (l_1, g_1) = res["sharded"], res["single"]
     loss_rel = abs(float(l_sh) - float(l_1)) / abs(float(l_1))
     l1 = {k: rel_l1(g_sh[k], g_1[k]) for k in DEFAULT_TRAIN_LEAVES}
-    step_s = {k: sum(v) / len(v) for k, v in secs.items()}
     checks = {"loss_rtol_1e-6": loss_rel <= 1e-6, "launches": train_launches == want_step,
               **{f"grad_{k}": v <= 1e-5 for k, v in l1.items()}}
-    phase("18b", f"world size 1: train_step_sharded {step_s['sharded']:.4f} s/step, train_step "
-                 f"{step_s['single']:.4f} s/step (2 each, in turns: {secs}); loss {float(l_sh):.6e} "
-                 f"against {float(l_1):.6e} (relative {loss_rel:.3e}); relative L1 {l1}; "
-                 f"launches {train_launches} expected {want_step}; checks {checks}; {smi_line}")
+    phase("18b", f"world size 1: train_step_sharded against train_step: loss "
+                 f"{float(l_sh):.6e} against {float(l_1):.6e} (relative {loss_rel:.3e}); "
+                 f"relative L1 {l1}; launches {train_launches} expected {want_step}; "
+                 f"checks {checks}")
     if not all(checks.values()):
         fail(f"phase 18b: checks failed {checks}")
 
-    # (c) two processes on the one card; a warm-up frame and step of other
-    # seeds take each process's first-call set-up (on an H100 80GB HBM3 a
-    # process's first gradient took 4.29 s, the next ones 0.23 s)
+    # (c) two processes on the one card
     torch.cuda.empty_cache()
     cpu_scene = scene.to("cpu")
     render_kw = dict(chunk_size=BENCH_CHUNK, **kw)
     train_kw = dict(target_rgb=target.cpu().numpy(), depth_cap=BENCH_DEPTH)
     meshes = [(2,), (1, 2), (2, 1)]
-    tasks = ([("render", cpu_scene, (2,), dict(chunk_size=BENCH_CHUNK, seed=0,
-                                              depth_cap=BENCH_DEPTH)),
-              ("train", cpu_scene, (2,), dict(seed=2, **train_kw))]
-             + [("render", cpu_scene, m, render_kw) for m in meshes]
+    tasks = ([("render", cpu_scene, m, render_kw) for m in meshes]
              + [("train", cpu_scene, (2,), dict(seed=0, **train_kw)),
                 ("train", cpu_scene, (2,), dict(seed=0, chunk_size=BENCH_CHUNK, **train_kw))])
-    t0 = time.perf_counter()
-    ranks, start_s = sh.run_ranks(2, sh.sharded_job, tasks, backend="gloo", device="cuda")
-    wall_s = time.perf_counter() - t0
+    ranks = sh.run_ranks(2, sh.sharded_job, tasks, backend="gloo", device="cuda")
     ref = film.cpu()
     atol = 1e-6 * float(ref.abs().max())
-    checks, frame_s, film_err = {}, {}, {}
-    for i, m in enumerate(meshes, 2):
-        got = ranks[0][i][0]
+    checks, film_err = {}, {}
+    for i, m in enumerate(meshes):
+        got = ranks[0][i]
         film_err[str(m)] = float((got - ref).abs().max())
-        frame_s[str(m)] = max(r[i][1] for r in ranks)
         checks[f"film_{m}"] = bool(torch.allclose(got, ref, rtol=1e-5, atol=atol))
-        checks[f"ranks_equal_{m}"] = all(r[i][0].equal(got) for r in ranks)
+        checks[f"ranks_equal_{m}"] = all(r[i].equal(got) for r in ranks)
     steps_c = {}
-    for i, name in ((5, "one_chunk"), (6, "chunked")):
-        (loss_i, g_i), step_i = ranks[0][i][0], max(r[i][1] for r in ranks)
+    for i, name in ((3, "one_chunk"), (4, "chunked")):
+        loss_i, g_i = ranks[0][i]
         l1_i = {k: rel_l1(g_i[k], g_1[k]) for k in DEFAULT_TRAIN_LEAVES}
-        steps_c[name] = {"s": step_i, "loss": float(loss_i), "rel_l1": l1_i}
+        steps_c[name] = {"loss": float(loss_i), "rel_l1": l1_i}
         checks[f"ranks_equal_train_{name}"] = all(
-            r[i][0][0].equal(loss_i) and all(r[i][0][1][k].equal(g_i[k]) for k in g_i)
+            r[i][0].equal(loss_i) and all(r[i][1][k].equal(g_i[k]) for k in g_i)
             for r in ranks)
         checks.update({f"grad_{k}_{name}": v <= 1e-4 for k, v in l1_i.items()})
-    phase("18c", f"FUNCTIONAL ONLY, not a scaling result: 2 processes share one card over gloo "
-                 f"({smi_line}); group up {start_s:.2f} s after the spawn, {wall_s:.2f} s in "
-                 f"all; s/frame {frame_s} (largest difference from (a)'s film {film_err}, "
-                 f"atol {atol:.3e}); train_step_sharded, each rank's block in one chunk "
-                 f"and in chunks of {BENCH_CHUNK} lanes: {steps_c} (s/step, loss, relative L1 "
-                 f"against (b)'s train_step); checks {checks}")
+    phase("18c", f"2 processes share one card over gloo ({smi_line}): largest difference from "
+                 f"(a)'s film {film_err} (atol {atol:.3e}); train_step_sharded, each rank's "
+                 f"block in one chunk and in chunks of {BENCH_CHUNK} lanes: {steps_c} (loss, "
+                 f"relative L1 against (b)'s train_step); checks {checks}")
     if not all(checks.values()):
         fail(f"phase 18c: checks failed {checks}")
-    _, dry_s = timed(lambda: graft_entry.dryrun_multichip(2, device="cuda"))
-    phase("18c", f"dryrun_multichip(2) on the card over gloo: {dry_s:.2f} s, processes "
-                 f"included; {smi_line}")
-    return {"world1": {"frame_s": shard_s, "render_frame_s": one_s, "frames_s": frames,
-                       "film_equal": equal,
-                       "film_max_diff": film_diff, "launches": launches,
-                       "allreduce_ms": reduce_ms, "allreduce_bytes": reduce_bytes,
-                       "step_s": step_s, "loss_rel": loss_rel, "grad_rel_l1": l1,
+    graft_entry.dryrun_multichip(2, device="cuda")
+    phase("18c", "dryrun_multichip(2) on the card over gloo: ok")
+    return {"world1": {"film_equal": equal, "film_max_diff": film_diff, "launches": launches,
+                       "loss_rel": loss_rel, "grad_rel_l1": l1,
                        "train_launches": train_launches},
-            "two_processes_one_card": {"start_s": start_s, "wall_s": wall_s,
-                                       "frame_s": frame_s, "film_max_diff": film_err,
-                                       "steps": steps_c, "dryrun_s": dry_s},
+            "two_processes_one_card": {"film_max_diff": film_err, "steps": steps_c},
             "device": smi_line}
-
-
-def run_bench():
-    """The port's bench in its own process; its lines printed with a prefix.
-    Fails unless it exits 0 with its headline on its first line."""
-    res = subprocess.run([sys.executable, "-m", "misaki_tpu_torch.tools.bench"], cwd=ROOT,
-                         capture_output=True, text=True, timeout=900)
-    lines = res.stdout.strip().splitlines()
-    for line in lines:
-        print(f"[bench] {line}", flush=True)
-    try:
-        head = json.loads(lines[0])
-        extra = json.loads(lines[1])
-    except (IndexError, ValueError):
-        fail(f"bench: no headline and extras (rc {res.returncode}): {res.stderr[-2000:]}")
-    if res.returncode != 0 or head.get("metric") != "cbox_4bounce_rays_per_s":
-        fail(f"bench: rc {res.returncode}, first line {lines[0]}")
-    return {"headline": head, **extra}
 
 
 def centre_hits(scene):
@@ -1871,22 +1602,18 @@ def main():
     from misaki_tpu_torch.scene.compiler import load_and_compile
     from misaki_tpu_torch.scenes.envlit import assets
     from misaki_tpu_torch.scenes.materials import assets as materials_assets
-    from misaki_tpu_torch.tools import profile_cluster_frame, profile_ppm_density
-    from misaki_tpu_torch.tools.bench import quiet
+    from misaki_tpu_torch.tools import profile_cluster_frame
     from misaki_tpu_torch.tools.tie_case import merge_clusters
     from misaki_tpu_torch.utils import cuda_build
 
     # ---- phase 2: build, one nvcc per source, all started together
-    t0 = time.perf_counter()
-    srcs = [cl.SRC, tf.SRC, ppm.SRC, profile_ppm_density.LEVERS_SRC]
+    srcs = [cl.SRC, tf.SRC, ppm.SRC]
     libs = cuda_build.compile_sources(srcs)
     cl.build()
     tf.build()
     ppm.build()
-    profile_ppm_density.load_levers()
     phase("2", f"built {', '.join(p.name for p in libs)} from "
-               f"{', '.join(str(src.relative_to(ROOT)) for src in srcs)} in "
-               f"{time.perf_counter() - t0:.2f} s")
+               f"{', '.join(str(src.relative_to(ROOT)) for src in srcs)}")
 
     # ---- phase 3: cluster kernels vs plain twins
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1897,15 +1624,12 @@ def main():
     tab = np.zeros((36, len(pos)), np.float32)
     tab[0] = np.arange(len(pos))
     tab[1:] = np.random.default_rng(0).normal(size=(35, len(pos)))
-    t0 = time.perf_counter()
     acc_host = cl.build_clusters(pos[:, 0].astype(np.float32),
                                  (pos[:, 1] - pos[:, 0]).astype(np.float32),
                                  (pos[:, 2] - pos[:, 0]).astype(np.float32), face_tab=tab)
-    build_s = time.perf_counter() - t0
     acc = acc_host.to("cuda")
-    phase("3", f"bunny accel host build {build_s:.4f} s: {len(pos)} faces, {acc.n_clusters} "
-               f"clusters, {acc.nodes.shape[0]} BVH2 nodes")
-    report["bunny_build_s"] = build_s
+    phase("3", f"bunny accel: {len(pos)} faces, {acc.n_clusters} clusters, "
+               f"{acc.nodes.shape[0]} BVH2 nodes")
     lo = torch.tensor(pos.reshape(-1, 3).min(0), device="cuda", dtype=torch.float32)
     hi = torch.tensor(pos.reshape(-1, 3).max(0), device="cuda", dtype=torch.float32)
     center, extent = 0.5 * (lo + hi), (hi - lo).max()
@@ -1931,7 +1655,7 @@ def main():
 
     # ---- phase 4: the cbox main path at the benchmark spec
     n_iters = n_bounce_iters(cbox, BENCH_DEPTH)
-    out, dt, rays_per_s, launches_cbox = timed_frames(
+    out, launches_cbox = checked_frame(
         cbox, "4", {"closest": 1 + n_iters, "anyhit": n_iters, "fetch": 0})
     rgb = out["rgb"].cpu().numpy()
     alpha = out["alpha"].cpu().numpy()
@@ -1949,20 +1673,16 @@ def main():
         fail(f"phase 4: image checks failed {checks}")
     np.save(OUT_DIR / "cbox_bench_rgb.npy", rgb)
 
-    # device-time breakdown of one frame (torch.profiler; CUDA events above)
-    profile_cbox = try_profile(frame(cbox), dt, "4", "profile.txt")
-
     # ---- phase 5: cuda vs cpu on a small cbox
     cuda_vs_cpu(load_and_compile(str(CBOX_XML), spp=16, width=64, height=48, device="cpu"), "5")
 
     # ---- phase 6: the texel-fetch kernel vs its plain twin at 2^20 lanes
-    t0 = time.perf_counter()
     envlit_xml = assets.prepared(SCENE_BUILD)
     envlit = load_and_compile(str(envlit_xml))
     phase("6", f"envlit scene {envlit_xml.relative_to(ROOT)}: {envlit.n_faces} faces, "
                f"{envlit.cluster.n_clusters} clusters, env {tuple(envlit.emitters.env_rgb.shape)}, "
                f"sampling {tuple(envlit.emitters.env_pmf.shape)}, bitmap texels "
-               f"{envlit.bitmaps.shape[0]}; assets and compile {time.perf_counter() - t0:.2f} s")
+               f"{envlit.bitmaps.shape[0]}")
     # random envmap taps, a raster over every mip level of the floor's
     # bitmap, the envmap's NEE taps, and the split launches
     fetch_report = compare_fetch(envlit)
@@ -1972,7 +1692,7 @@ def main():
     n_bitmaps = len(envlit.bitmap_slots) * len(envlit.bitmap_meta)
     # texel fetches per chunk: the primary escape, then per bounce each
     # bitmap slot, the envmap's NEE sample and the bounce ray's escape
-    out, dt_env, rays_env, launches_env = timed_frames(
+    out, launches_env = checked_frame(
         envlit, "7", {"closest": 1 + n_iters, "anyhit": n_iters,
                       "fetch": 1 + n_iters * (n_bitmaps + 2)})
     rgb = out["rgb"].cpu().numpy()
@@ -1991,7 +1711,6 @@ def main():
     if not all(checks.values()):
         fail(f"phase 7: image checks failed {checks}")
     np.save(OUT_DIR / "envlit_bench_rgb.npy", rgb)
-    profile_env = try_profile(frame(envlit), dt_env, "7", "profile_envlit.txt")
     small = load_and_compile(str(envlit_xml), spp=8, width=48, height=36, device="cpu")
     env_mean_rel, env_l1_rel = cuda_vs_cpu(small, "7")
 
@@ -2015,26 +1734,23 @@ def main():
         fail(f"phase 8: {prof['launches']} closest-hit launches, expected {want_launches}")
 
     # ---- phase 9: the material gallery at the benchmark spec
-    t0 = time.perf_counter()
     gallery_xml = materials_assets.prepared(GALLERY_BUILD)
     gallery = load_and_compile(str(gallery_xml))
     phase("9", f"gallery {gallery_xml.relative_to(ROOT)}: {gallery.n_faces} faces, "
                f"{gallery.cluster.n_clusters} clusters, BSDF kinds {gallery.bsdf_kinds}, "
                f"bitmap slots {gallery.bitmap_slots}, emitter kinds {gallery.emitter_kinds}, "
-               f"max_depth {gallery.max_depth}; assets and compile "
-               f"{time.perf_counter() - t0:.2f} s")
+               f"max_depth {gallery.max_depth}")
     n_iters = n_bounce_iters(gallery, BENCH_DEPTH)
     # texel fetches per chunk: each bounce's material_params evaluates every
     # slot that holds a bitmap (the gold ball's alpha_u and alpha_v), one
     # fetch per bitmap of the scene; the environment is `constant`, so no
     # envmap fetch (escape or NEE) runs
     n_bitmaps = len(gallery.bitmap_slots) * len(gallery.bitmap_meta)
-    out, dt_gal, rays_gal, launches_gal = timed_frames(
+    out, launches_gal = checked_frame(
         gallery, "9", {"closest": 1 + n_iters, "anyhit": n_iters, "fetch": n_iters * n_bitmaps})
     rgb = out["rgb"].cpu().numpy()
     np.save(OUT_DIR / "gallery_bench_rgb.npy", rgb)
     ball_checks(gallery, rgb, [(i,) for i in range(9)], 9, "9")
-    profile_gal = try_profile(frame(gallery), dt_gal, "9", "profile_gallery.txt")
     small = load_and_compile(str(gallery_xml), spp=2, width=32, height=24, device="cpu")
     gal_cuda_vs_cpu = cuda_vs_cpu(small, "9")
 
@@ -2042,42 +1758,25 @@ def main():
     balls = {}
     for fig, xml_name in (("figure2", "roughconductor"), ("figure3", "roughdielectric")):
         xml = TESTBALL_DIR / f"{xml_name}.xml"
-        t0 = time.perf_counter()
         tb = load_and_compile(str(xml))
         n_iters = n_bounce_iters(tb, BENCH_DEPTH)
         phase("10", f"{fig} {xml.relative_to(ROOT)}: {tb.n_faces} faces, "
                     f"{tb.cluster.n_clusters} clusters, BSDF kinds {tb.bsdf_kinds}, max_depth "
-                    f"{tb.max_depth}; compile {time.perf_counter() - t0:.2f} s")
-        warm = load_and_compile(str(xml), spp=4, width=128, height=72)
-        out, dt_tb, rays_tb, launches_tb = timed_frames(
-            tb, "10", {"closest": 1 + n_iters, "anyhit": n_iters, "fetch": 0},
-            n_frames=1, warmup=warm)
+                    f"{tb.max_depth}")
+        out, launches_tb = checked_frame(
+            tb, "10", {"closest": 1 + n_iters, "anyhit": n_iters, "fetch": 0})
         rgb = out["rgb"].cpu().numpy()
         np.save(OUT_DIR / f"{fig}_{xml_name}_rgb.npy", rgb)
         # shapes: Mesh000 the stand, Mesh001 and Mesh003 the ball, Mesh002
         # the core, then the floor
         ball_checks(tb, rgb, [(1, 3)], 4, "10")
-        # device busy share from a 4 spp frame at the declared resolution
-        # (4 of the frame's 113 chunks: profiling costs about 0.4 ms a
-        # launch, 110k-174k launches at 16 spp), against the same frame
-        # unprofiled
-        part = tb.replace(spp=4)
-        t0 = time.perf_counter()
-        driver.render(part, seed=12, chunk_size=BENCH_CHUNK, depth_cap=BENCH_DEPTH,
-                      progress=quiet)
-        torch.cuda.synchronize()
-        part_s = time.perf_counter() - t0
-        prof_tb = try_profile(frame(part), part_s, "10", f"profile_{fig}.txt")
         small = load_and_compile(str(xml), spp=2, width=32, height=18, device="cpu")
-        balls[fig] = {"scene": xml_name, "frame_s": dt_tb, "rays_per_s": rays_tb,
-                      "launches": launches_tb, "spp16_frame_s": part_s, "spp16_profile": prof_tb,
+        balls[fig] = {"scene": xml_name, "launches": launches_tb,
                       "cuda_vs_cpu": cuda_vs_cpu(small, "10")}
 
     # ---- phases 11-14: the debug, direct and aov paths, checkpoint and CLI
-    new_profiles = {}
-    new_paths = {"bunny_debug": phase_debug(new_profiles),
-                 "cbox_direct": phase_direct(new_profiles),
-                 "envlit_aov": phase_aov(envlit_xml, new_profiles)}
+    new_paths = {"bunny_debug": phase_debug(), "cbox_direct": phase_direct(),
+                 "envlit_aov": phase_aov(envlit_xml)}
     checkpoint = phase_checkpoint(envlit_xml)
 
     # ---- phase 15: gradients — cbox training, the envlit texture and envmap
@@ -2091,21 +1790,21 @@ def main():
     # ---- phase 17: sppm and photonmapper, the density kernel
     photon = phase_ppm(envlit)
 
-    # ---- phase 18: sharding on torch.distributed (one card: functional, not scaling)
+    # ---- phase 18: sharding on torch.distributed (one card)
     sharding = phase_sharding(smi_line)
-    bench = run_bench()
 
     main_case = report["cbox_camera"]
     fa, fb, fn = (fetch_report[c] for c in ("env_random", "bitmap_camera_mips", "env_nee"))
-    main_runs = {"cbox": (launches_cbox, N_FRAMES), "envlit": (launches_env, N_FRAMES),
-                 "gallery": (launches_gal, N_FRAMES),
+    # {run: (launch counts, frames or steps)}: one frame of each, five steps
+    main_runs = {"cbox": (launches_cbox, 1), "envlit": (launches_env, 1),
+                 "gallery": (launches_gal, 1),
                  **{fig: (b["launches"], 1) for fig, b in balls.items()},
-                 **{path: (r["launches"], N_FRAMES) for path, r in new_paths.items()},
+                 **{path: (r["launches"], 1) for path, r in new_paths.items()},
                  "cbox_train_step": (train["launches"], train["frames"]),
                  "envlit_gradient": (grad["launches"], grad["frames"]),
                  **{run: (volpath[run]["launches"], 1) for run in
                     ("teapot", "volume", "teapot_gradient", "volume_gradient")},
-                 **{run: (photon[run]["launches"], 1 if run == "gallery_sppm" else N_FRAMES)
+                 **{run: (photon[run]["launches"], 1)
                     for run in ("cbox_sppm", "cbox_photonmapper", "envlit_sppm",
                                 "gallery_sppm")},
                  "cbox_sharded": (sharding["world1"]["launches"], 1),
@@ -2191,7 +1890,7 @@ def main():
          "replaces_note": "no Pallas kernel: _density_blocks is an XLA matmul per 2048-photon "
                           "block",
          "design": "redesigned: photons binned by a stable radix sort into a grid, each "
-                   "visible point tests the cells its radius reaches (first design: dense)",
+                   "visible point tests the cells its radius reaches",
          # launches: estimates (tracing.launches["density"]); cuda_launches:
          # the CUDA kernels those estimates enqueued ("density_cuda")
          "launches": launches("density"),
@@ -2202,102 +1901,26 @@ def main():
          "max_abs_err": max(d["max_abs_err"] for d in dens_all.values()), "ms": dens["ms"],
          "plain_ms": dens["plain_ms"], "bound_ms": dens["bound_ms"],
          "bound_by": dens["bound_by"], "library_ms": None,
-         "dense_form_bound_ms": dens["dense_bound_ms"], "dense_kernel_ms": dens["dense_ms"],
+         "dense_form_bound_ms": dens["dense_bound_ms"],
          "pair_tests": dens["pair_tests"], "pairs_passed": dens["pairs_passed"],
          "tolerance_used": max(d["tolerance_used"] for d in dens_all.values()),
          **{f"{cell}_{k}": dens_all[cell][k] for cell in dens_all if cell != "cbox_sppm"
-            for k in ("ms", "dense_ms", "plain_ms", "bound_ms", "dense_bound_ms", "pair_tests")}},
+            for k in ("ms", "plain_ms", "bound_ms", "dense_bound_ms", "pair_tests")}},
     ]}
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
         {"device": device_name, "nvidia_smi": smi_line, "cluster_kernels": report,
          "texel_fetch": fetch_report, "stage_profile": prof,
-         "cbox": {"frame_s": dt, "rays_per_s": rays_per_s, "launches": launches_cbox,
-                  "profile": profile_cbox},
-         "envlit": {"frame_s": dt_env, "rays_per_s": rays_env, "launches": launches_env,
-                    "profile": profile_env, "checker_corr": corr,
+         "cbox": {"launches": launches_cbox},
+         "envlit": {"launches": launches_env, "checker_corr": corr,
                     "cuda_vs_cpu": [env_mean_rel, env_l1_rel]},
-         "gallery": {"frame_s": dt_gal, "rays_per_s": rays_gal, "launches": launches_gal,
-                     "profile": profile_gal, "cuda_vs_cpu": gal_cuda_vs_cpu},
-         "testballs": balls,
-         **{path: {**r, "profile": new_profiles[path]} for path, r in new_paths.items()},
+         "gallery": {"launches": launches_gal, "cuda_vs_cpu": gal_cuda_vs_cpu},
+         "testballs": balls, **new_paths,
          "checkpoint": checkpoint, "cbox_train": train, "envlit_gradient": grad,
-         "volpath": volpath, "photon_mapping": photon, "sharding": sharding, "bench": bench},
+         "volpath": volpath, "photon_mapping": photon, "sharding": sharding},
         indent=1))
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name,
                                              "count": torch.cuda.device_count()}}), flush=True)
-
-
-def frame(scene):
-    """One frame of `scene` at the benchmark's chunk and depth, for
-    try_profile."""
-    from misaki_tpu_torch.render.driver import render
-    from misaki_tpu_torch.tools.bench import quiet
-
-    return lambda: render(scene, seed=11, chunk_size=BENCH_CHUNK, depth_cap=BENCH_DEPTH,
-                          progress=quiet)
-
-
-def try_profile(run, run_s, label, table_name, what="frame", closest_per_chunk=None):
-    """One call of `run` (a frame, or a gradient step) under torch.profiler:
-    device time by kernel, the number of kernel launches, and the device's
-    busy share of an unprofiled call (`run_s`); with `closest_per_chunk`,
-    the closest-hit launches' times by their place in a volpath chunk
-    (`closest_by_segment`). The table goes to chiprun_out/`table_name`.
-    Returns the numbers, or None when the profiler recorded no device
-    time."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        run()
-        torch.cuda.synchronize()
-    events = prof.key_averages()
-    (OUT_DIR / table_name).write_text(events.table(sort_by="self_device_time_total",
-                                                   row_limit=60))
-
-    def self_time(e):
-        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0)
-
-    kernels = [e for e in events if getattr(e, "device_type", None) == DeviceType.CUDA]
-    busy = sum(self_time(e) for e in kernels) / 1e6
-    if busy == 0:
-        phase(label, "profile: no device time recorded (not measured)")
-        return None
-    launches = sum(e.count for e in kernels)
-
-    def named(part):
-        """Device seconds and launches of the kernels whose name holds `part`."""
-        sel = [e for e in kernels if part in e.key]
-        return sum(self_time(e) for e in sel) / 1e6, sum(e.count for e in sel)
-
-    (closest_t, n_closest), (any_t, n_any) = named("closest_hit"), named("any_hit")
-    cluster_t = closest_t + any_t
-    fetch_t, n_fetch = named("fetch4")
-    density_t, n_density = named("density_")
-    kernels.sort(key=lambda e: -self_time(e))
-    top = "; ".join(f"{e.key[:60]} {self_time(e) / 1e3:.3f} ms x{e.count}" for e in kernels[:6])
-    cast_ms = {"closest": 1e3 * closest_t / max(n_closest, 1), "anyhit": 1e3 * any_t / max(n_any, 1)}
-    fetch_ms = 1e3 * fetch_t / max(n_fetch, 1)
-    phase(label, f"profile of one {what}: {launches} kernel launches, device busy {busy:.4f} s "
-                 f"= {busy / run_s:.3f} of the unprofiled {run_s:.4f} s {what}; cluster "
-                 f"kernels {cluster_t:.4f} s = {cluster_t / busy:.3f} of device time (closest "
-                 f"hit {closest_t:.4f} s over {n_closest} launches, {cast_ms['closest']:.4f} ms "
-                 f"each; any hit {any_t:.4f} s over {n_any}, {cast_ms['anyhit']:.4f} ms each), "
-                 f"texel fetch {fetch_t:.4f} s = {fetch_t / busy:.3f} over {n_fetch} launches, "
-                 f"{fetch_ms:.4f} ms each"
-                 + (f", density estimate's kernels {density_t:.4f} s = {density_t / busy:.3f} "
-                    f"over {n_density} launches" if n_density else "")
-                 + f"; top: {top}")
-    out = {"launches": launches, "busy_s": busy, "busy_share": busy / run_s,
-           "cluster_s": cluster_t, "cluster_share": cluster_t / busy, "fetch_s": fetch_t,
-           "fetch_launches": n_fetch, "fetch_ms_per_launch": fetch_ms, "cast_ms": cast_ms,
-           "density_s": density_t, "density_launches": n_density}
-    if closest_per_chunk is not None:
-        out["closest_ms_by_segment"] = closest_by_segment(prof.events(), closest_per_chunk)
-    return out
 
 
 if __name__ == "__main__":

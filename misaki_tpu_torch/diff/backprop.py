@@ -28,10 +28,9 @@ import torch
 from misaki_tpu_torch.diff.leaves import get_leaves, replace_leaves
 from misaki_tpu_torch.render import driver
 from misaki_tpu_torch.render import film as film_mod
-from misaki_tpu_torch.utils.logging import synced_clock
 
 # Lanes per autograd chunk: the graph of one chunk is what must fit on the
-# card. On an H100 80GB (chip_smoke.py phase 15 (d)) envlit's graph peaks at
+# card. On an H100 80GB, measured by chunk size, envlit's graph peaks at
 # about 4 KB of device memory a lane (4.4 / 8.3 / 15.8 GiB at 2^20 / 2^21 /
 # 2^22 lanes; cbox 12.1 GiB at 2^22), and fewer, larger chunks take less
 # time (the frame is host-bound): 2^22 lanes differentiate the whole
@@ -41,7 +40,7 @@ GRAD_CHUNK = 1 << 22
 
 
 def image_grads(scene, names, loss_fn, seed=0, depth_cap=4, chunk_size=GRAD_CHUNK,
-                stats=None, lanes=None, reduce=None):
+                lanes=None, reduce=None):
     """-> (loss (0-d tensor), rgb (H, W, 3), {name: gradient of the loss})
     for `loss_fn(rgb)` of the `path`, `direct` or `volpath` image of `scene`, with
     respect to the leaves `names` (misaki_tpu_torch.diff.DIFF_LEAVES). A
@@ -55,12 +54,7 @@ def image_grads(scene, names, loss_fn, seed=0, depth_cap=4, chunk_size=GRAD_CHUN
     sums a detached (C, flat) film over the processes that render the other
     lanes, in place; the loss, the image and dL/dfilm are then the summed
     film's, and dL/dfilm goes back into these lanes' film (`chunk_size` or
-    fewer lanes are rendered once, under autograd).
-
-    `stats`: a dict that, where given, receives the seconds of the primal
-    (0 in one pass) and of the render under autograd with its backward (the
-    device synchronised at each end), the chunk and the chunk count of that
-    render and, on CUDA, its peak device memory in bytes."""
+    fewer lanes are rendered once, under autograd)."""
     if scene.integrator not in ("path", "direct", "volpath"):
         raise NotImplementedError(f"gradients of the '{scene.integrator}' integrator")
     W, H, spp = scene.film_width, scene.film_height, scene.spp
@@ -84,12 +78,8 @@ def image_grads(scene, names, loss_fn, seed=0, depth_cap=4, chunk_size=GRAD_CHUN
         return driver.render_lanes(scene_g, new_flat(), c0, min(c0 + chunk, lane1), seed,
                                    chunk, depth_cap)
 
-    t0 = synced_clock(dev) if stats is not None else None
-    if stats is not None and dev.type == "cuda":
-        torch.cuda.reset_peak_memory_stats(dev)
     if n_chunks == 1 and reduce is None:
         # one pass: the loss of the frame's own graph
-        t1 = t0
         rgb, _ = film_mod.develop(to_film(chunk_flat(0)))
         loss = loss_fn(rgb)
         if loss.requires_grad:
@@ -113,19 +103,10 @@ def image_grads(scene, names, loss_fn, seed=0, depth_cap=4, chunk_size=GRAD_CHUN
         rgb, _ = film_mod.develop(film)
         loss = loss_fn(rgb)
         (grad_film,) = torch.autograd.grad(loss, film)
-        if stats is not None:
-            t1 = synced_clock(dev)
-            if dev.type == "cuda" and own is None:
-                torch.cuda.reset_peak_memory_stats(dev)
         for c in range(n_chunks):
             img_c = to_film(own if own is not None else chunk_flat(c))
             if img_c.requires_grad:
                 torch.autograd.backward(img_c, grad_film)
     grads = {k: v.grad if v.grad is not None else torch.zeros_like(v)
              for k, v in leaves.items()}
-    if stats is not None:
-        t2 = synced_clock(dev)
-        stats.update(primal_s=t1 - t0, backward_s=t2 - t1, chunk=chunk, chunks=n_chunks,
-                     peak_bytes=torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
-                     else None)
     return loss.detach(), rgb.detach(), grads

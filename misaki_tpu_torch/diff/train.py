@@ -15,7 +15,7 @@ DEFAULT_TRAIN_LEAVES = ("materials", "rad_coeff", "rad_curve")
 def train_step(scene, target_rgb, seed=0, depth_cap=4, leaves=DEFAULT_TRAIN_LEAVES,
                **grads_kw):
     """-> (loss, {leaf: gradient}) of mean((rgb - target_rgb)^2);
-    `grads_kw` (`stats`, `chunk_size`, `lanes`, `reduce`) as in
+    `grads_kw` (`chunk_size`, `lanes`, `reduce`) as in
     `image_grads`. The scene is flipped into diff_mode, so microfacet
     alpha takes part through the detached-sampling estimator
     (misaki_tpu_torch.diff)."""

@@ -69,8 +69,8 @@ def dryrun_multichip(n_devices, device="cuda"):
 
     scene = _small_scene(spp=max(4, n_devices), device="cpu")
     target = np.zeros((scene.film_height, scene.film_width, 3), np.float32)
-    results, _ = run_ranks(n_devices, _dryrun_rank, scene, target, backend="gloo",
-                           device=device)
+    results = run_ranks(n_devices, _dryrun_rank, scene, target, backend="gloo",
+                        device=device)
     l0, grads, l1 = results[0]
     for r, (r0, g, r1) in enumerate(results[1:], 1):
         if (r0, r1) != (l0, l1) or any(not g[k].equal(grads[k]) for k in grads):

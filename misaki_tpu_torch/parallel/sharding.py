@@ -45,7 +45,6 @@ from misaki_tpu_torch.render import film as film_mod
 from misaki_tpu_torch.render import integrator as integ
 from misaki_tpu_torch.scene.compiler import target_device
 from misaki_tpu_torch.utils import cuda_build, tracing
-from misaki_tpu_torch.utils.logging import synced_clock
 
 # how long a spawned rank waits in a collective before it fails
 SPAWN_TIMEOUT = timedelta(minutes=10)
@@ -255,18 +254,14 @@ def sharded_job(device, tasks):
     kwargs) of `tasks`, a mesh of that shape ((n,) or (n_host, n_chip)) and
     `scene` moved to the rank's device, then kind "render"
     (`render_sharded`, `render_sharded_2d` on a 2D mesh) or "train"
-    (`train_step_sharded`, kwargs `target_rgb` and the rest) -> [(result,
-    seconds)], each timed with the device synchronised at both ends."""
+    (`train_step_sharded`, kwargs `target_rgb` and the rest) -> [result]."""
     out = []
     for kind, scene, shape, kw in tasks:
         mesh = (make_mesh(shape[0], device) if len(shape) == 1 else
                 make_host_chip_mesh(shape[0], device))
-        scene = scene.to(device)
-        t0 = synced_clock(device)
         fn = {"render": render_sharded if len(shape) == 1 else render_sharded_2d,
               "train": train_step_sharded}[kind]
-        res = fn(mesh, scene, **kw)
-        out.append((res, synced_clock(device) - t0))
+        out.append(fn(mesh, scene.to(device), **kw))
     return out
 
 
@@ -280,7 +275,7 @@ def _to_cpu(x):
     return x
 
 
-def _spawn_main(rank, world_size, tmp, backend, device, t0, job, args):
+def _spawn_main(rank, world_size, tmp, backend, device, job, args):
     """One rank of `run_ranks`: join the group, run the job, write its
     result beside the store."""
     if torch.device(device).type == "cpu":
@@ -288,10 +283,7 @@ def _spawn_main(rank, world_size, tmp, backend, device, t0, job, args):
     dev = init_distributed(f"file://{tmp}/store", world_size, rank, backend, device=device,
                            timeout=SPAWN_TIMEOUT)
     try:
-        start_s = time.time() - t0
-        result = job(dev, *args)
-        torch.save({"result": _to_cpu(result), "start_s": start_s},
-                   os.path.join(tmp, f"rank{rank}.pt"))
+        torch.save(_to_cpu(job(dev, *args)), os.path.join(tmp, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
 
@@ -300,17 +292,14 @@ def run_ranks(world_size, job, *args, backend="gloo", device="cuda"):
     """Start `world_size` processes (torch.multiprocessing, start method
     spawn), join them in one process group through a file store in a
     temporary directory, and call `job(device, *args)` in each with the
-    rank's device (init_distributed's). -> ([each rank's result, on the
-    CPU], seconds from the start until the group was up). `job` is a
-    module-level function of this package: the processes import it by
-    name. Raises where a rank raised."""
+    rank's device (init_distributed's). -> [each rank's result, on the
+    CPU]. `job` is a module-level function of this package: the processes
+    import it by name. Raises where a rank raised."""
     with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.time()
         torch.multiprocessing.spawn(_spawn_main, nprocs=world_size, join=True,
-                                    args=(world_size, tmp, backend, device, t0, job, args))
-        outs = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=True)
+                                    args=(world_size, tmp, backend, device, job, args))
+        return [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=True)
                 for r in range(world_size)]
-    return [o["result"] for o in outs], max(o["start_s"] for o in outs)
 
 
 # ---- a standing group of ranks (ShardedRenderer) ----

@@ -15,14 +15,13 @@ order, launched at once instead of one by one from the host, so the film is
 the eager one to the bit. Such a scene renders one frame at a time.
 """
 
-import os
-
 import numpy as np
 import torch
 
 from misaki_tpu_torch.core import rng, spectrum as spec
 from misaki_tpu_torch.render import aov
 from misaki_tpu_torch.render import camera as cam
+from misaki_tpu_torch.render import checkpoint
 from misaki_tpu_torch.render import film as film_mod
 from misaki_tpu_torch.render import graphs
 from misaki_tpu_torch.render import integrator as integ
@@ -187,30 +186,6 @@ def _scene_fingerprint(scene, seed, depth_cap, chunk):
     )
 
 
-def save_checkpoint(path, film_flat, next_chunk, fingerprint):
-    """Atomic snapshot of the film (copied to the host) and the next chunk:
-    written beside `path`, then renamed over it. The per-lane PCG32 streams
-    need no state in the file: they derive from (lane, seed)."""
-    tmp = f"{path}.tmp.npz"
-    np.savez(tmp, film_flat=film_flat.cpu().numpy(), next_chunk=np.int64(next_chunk),
-             fingerprint=np.array(fingerprint))
-    os.replace(tmp, path)
-
-
-def load_checkpoint(path, fingerprint, device):
-    """-> (film_flat on `device`, next_chunk), or None where there is no
-    snapshot or it belongs to another render (logged)."""
-    if not os.path.exists(path):
-        return None
-    with np.load(path, allow_pickle=False) as data:
-        if str(data["fingerprint"]) != fingerprint:
-            get_logger().warning(
-                "checkpoint %s does not match this render (have %r, want %r): "
-                "starting fresh", path, str(data["fingerprint"]), fingerprint)
-            return None
-        return torch.from_numpy(data["film_flat"]).to(device), int(data["next_chunk"])
-
-
 def log_progress(done, total):
     """The default progress reporter: a log line about every tenth of the
     chunks."""
@@ -251,9 +226,12 @@ def render(scene, seed=0, chunk_size=DEFAULT_CHUNK,
         fingerprint = _scene_fingerprint(scene, seed, depth_cap, chunk)
         start, film_flat = 0, None
         if checkpoint_path is not None:
-            resumed = load_checkpoint(checkpoint_path, fingerprint, scene.device)
+            resumed = checkpoint.load(checkpoint_path, fingerprint)
             if resumed is not None:
-                film_flat, start = resumed
+                # the per-lane PCG32 streams need no state in the file: they
+                # derive from (lane, seed)
+                film_flat = torch.from_numpy(resumed["film_flat"]).to(scene.device)
+                start = int(resumed["next_chunk"])
                 get_logger().info("resuming from %s at chunk %d/%d", checkpoint_path, start,
                                   n_chunks)
         if progress is None and n_chunks > 1:
@@ -269,7 +247,8 @@ def render(scene, seed=0, chunk_size=DEFAULT_CHUNK,
                     progress(c + 1, n_chunks)
                 if (checkpoint_path is not None and checkpoint_every > 0
                         and (c + 1) % checkpoint_every == 0 and c + 1 < n_chunks):
-                    save_checkpoint(checkpoint_path, film_flat, c + 1, fingerprint)
+                    checkpoint.save(checkpoint_path, {"film_flat": film_flat.cpu().numpy(),
+                                                      "next_chunk": np.int64(c + 1)}, fingerprint)
             film = film_mod.film_from_flat(film_flat, H, W, scene.filter_type,
                                            scene.filter_stddev)
             if scene.integrator == "aov":
@@ -277,6 +256,6 @@ def render(scene, seed=0, chunk_size=DEFAULT_CHUNK,
             else:
                 rgb, alpha = film_mod.develop(film)
                 out = {"film": film, "rgb": rgb, "alpha": alpha}
-        if checkpoint_path is not None and os.path.exists(checkpoint_path):
-            os.remove(checkpoint_path)  # completed: the snapshot is stale
+        if checkpoint_path is not None:
+            checkpoint.discard(checkpoint_path)
         return out

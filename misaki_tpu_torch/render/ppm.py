@@ -41,7 +41,6 @@ path integrator makes them, one more for envmap photon emission.
 
 import ctypes
 import math
-import os
 from typing import Any, NamedTuple
 
 import numpy as np
@@ -54,6 +53,7 @@ from misaki_tpu_torch.core import math as m
 from misaki_tpu_torch.core import spectrum as spec
 from misaki_tpu_torch.emitter import kernels as emitter
 from misaki_tpu_torch.render import camera as cam
+from misaki_tpu_torch.render import checkpoint
 from misaki_tpu_torch.render import graphs
 from misaki_tpu_torch.render import interaction as inter
 from misaki_tpu_torch.scene.types import (
@@ -844,18 +844,14 @@ def render_ppm(scene, seed=0, depth_cap=16, checkpoint_path=None, checkpoint_eve
             st = _initial_state(L, r0, dev, None if graph is None else graph.out)
             start = 0
             fingerprint = ppm_fingerprint(scene, seed, budget)
-            if checkpoint_path is not None and os.path.exists(checkpoint_path):
-                with np.load(checkpoint_path, allow_pickle=False) as data:
-                    if str(data["fingerprint"]) == fingerprint:
-                        for k, v in st.items():
-                            v.copy_(torch.from_numpy(data[k]))
-                        start = int(data["next_it"])
-                        get_logger().info("resuming %s from %s at iteration %d/%d",
-                                          scene.integrator, checkpoint_path, start, iters)
-                    else:
-                        get_logger().warning(
-                            "checkpoint %s does not match this render (have %r, want %r): starting "
-                            "fresh", checkpoint_path, str(data["fingerprint"]), fingerprint)
+            resumed = (None if checkpoint_path is None
+                       else checkpoint.load(checkpoint_path, fingerprint))
+            if resumed is not None:
+                for k, v in st.items():
+                    v.copy_(torch.from_numpy(resumed[k]))
+                start = int(resumed["next_it"])
+                get_logger().info("resuming %s from %s at iteration %d/%d",
+                                  scene.integrator, checkpoint_path, start, iters)
 
             rows = None
             for it in range(start, iters):
@@ -871,11 +867,9 @@ def render_ppm(scene, seed=0, depth_cap=16, checkpoint_path=None, checkpoint_eve
                     progress(it + 1, iters)
                 if (checkpoint_path is not None and checkpoint_every > 0
                         and (it + 1) % checkpoint_every == 0 and it + 1 < iters):
-                    tmp = f"{checkpoint_path}.tmp.npz"
-                    np.savez(tmp, fingerprint=np.array(fingerprint), next_it=np.int64(it + 1),
-                             **{k: v.cpu().numpy() for k, v in st.items()})
-                    os.replace(tmp, checkpoint_path)
+                    checkpoint.save(checkpoint_path, {"next_it": np.int64(it + 1), **{
+                        k: v.cpu().numpy() for k, v in st.items()}}, fingerprint)
             out = _develop(scene, st, iters)
-        if checkpoint_path is not None and os.path.exists(checkpoint_path):
-            os.remove(checkpoint_path)  # completed: the snapshot is stale
+        if checkpoint_path is not None:
+            checkpoint.discard(checkpoint_path)
         return out

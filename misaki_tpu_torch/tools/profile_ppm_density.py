@@ -1,6 +1,5 @@
-"""The photon density estimate on the card: the port's grid kernel, its
-levers and its first, dense kernel, each held against the plain twin and
-timed on a captured photon depth.
+"""The photon density estimate on the card: the port's grid kernel held
+against the plain twin and timed on a captured photon depth.
 
     python -m misaki_tpu_torch.tools.profile_ppm_density [--reps N] [--out FILE]
 
@@ -12,21 +11,16 @@ float32 distance that still passes, on cell boundaries, crowded into one
 cell, outside the grid's box, at inf and NaN positions; radii varying
 100x, one larger than a cell) all in one estimate.
 
-Variants: the port (`ppm.density_launch`), each lever of
-`ppm_density_levers.cu` beside this file (lanes per visible point; the
-visible points in pixel order, or sorted by cell, their rows copied into
-that order and the results put back), the first, dense kernel
-from the same file, and the plain twin `density_plain`. Each is held against the
-twin: counts equal to the bit and phi allclose (rtol 1e-5, atol 1e-6 of the
-twin's largest magnitude) in each of `--checks` calls, and phi equal to the
-bit between calls; then timed with `profile_cluster_frame.device_ms`, all
-variants in order, then in reverse. The table, with the CUDA launches of
-one estimate, the pairs the grid tested and the bounds, goes to `--out`
-(default `chiprun_out/profile_ppm_density.md`).
+The port's estimate (`ppm.density_launch`) is held against the plain twin
+`density_plain`: counts equal to the bit and phi allclose (rtol 1e-5, atol
+1e-6 of the twin's largest magnitude) in each of `--checks` calls, and phi
+equal to the bit between calls; then both are timed with
+`profile_cluster_frame.device_ms`, in order, then in reverse. The table,
+with the CUDA launches of one estimate, the pairs the grid tested and the
+bounds, goes to `--out` (default `chiprun_out/profile_ppm_density.md`).
 """
 
 import argparse
-import ctypes
 from pathlib import Path
 
 import numpy as np
@@ -34,12 +28,9 @@ import torch
 
 from misaki_tpu_torch.render import ppm
 from misaki_tpu_torch.tools.profile_cluster_frame import ROOT, bound_ms, device_ms, smi_line
-from misaki_tpu_torch.utils import cuda_build
 
-LEVERS_SRC = Path(__file__).resolve().parent / "ppm_density_levers.cu"
 DEFAULT_OUT = ROOT / "chiprun_out" / "profile_ppm_density.md"
 SCENES = ROOT / "misaki_tpu_torch" / "scenes"
-LANES = (1, 2, 4, 8, 16, 32)
 
 # ---------------------------------------------------------------------------
 # adversarial inputs (numpy, seeded): the grid is the unit cube in 16 cells
@@ -302,50 +293,6 @@ def bounds(args, want):
             "dense_pairs": n_live * n_ok}
 
 
-def load_levers():
-    """The lever library (built with the port's source)."""
-    p, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-    return cuda_build.load_library(LEVERS_SRC, {
-        "density_dense_launch": ([p, i64, p, i64, i32, p, p, p], i32),
-        "density_lever_workspace_bytes": ([i64, i64, i64], i64),
-        "density_lever_launch": ([p, i64, p, i64, i32, f32, f32, f32, f32, i32, i32, i32, i32,
-                                  i32, p, i64, p, p, p, p, p], i32),
-    })
-
-
-def dense_launch(lib, ph, vps, sppm_mode):
-    """The dense kernel on packed CUDA inputs: (phi, count)."""
-    ppm.check_packed(ph, vps)
-    L = vps.shape[1]
-    phi = torch.empty((4, L), dtype=torch.float32, device=vps.device)
-    count = torch.empty(L, dtype=torch.float32, device=vps.device)
-    cuda_build.check_launch(lib.density_dense_launch(
-        ph.data_ptr(), ph.shape[1], vps.data_ptr(), L, int(bool(sppm_mode)), phi.data_ptr(),
-        count.data_ptr(), torch.cuda.current_stream().cuda_stream), "dense density kernel")
-    return phi, count
-
-
-def lever_launch(lib, ph, vps, sppm_mode, grid, lanes, cell_order, stats=None):
-    """One lever variant of the grid design: (phi, count); `stats` as
-    `ppm.density_launch`'s."""
-    ppm.check_packed(ph, vps)
-    L, P = vps.shape[1], ph.shape[1]
-    phi = torch.empty((4, L), dtype=torch.float32, device=vps.device)
-    count = torch.empty(L, dtype=torch.float32, device=vps.device)
-    n_bytes = lib.density_lever_workspace_bytes(P, L, grid.n_cells)
-    work = torch.empty(n_bytes, dtype=torch.uint8, device=vps.device)
-    tests = torch.zeros(1, dtype=torch.int64, device=vps.device) if stats is not None else None
-    launches = ctypes.c_int(0)
-    cuda_build.check_launch(lib.density_lever_launch(
-        ph.data_ptr(), P, vps.data_ptr(), L, int(bool(sppm_mode)), *ppm.grid_args(grid), lanes,
-        int(bool(cell_order)), work.data_ptr(), n_bytes, phi.data_ptr(), count.data_ptr(),
-        None if tests is None else tests.data_ptr(), ctypes.byref(launches),
-        torch.cuda.current_stream().cuda_stream), f"density lever {lanes} lanes")
-    if stats is not None:
-        stats.update(cuda_launches=launches.value, pair_tests=tests)
-    return phi, count
-
-
 def kernel_times(fn, reps=10):
     """Device ms per call of each CUDA kernel that fn() launches, over
     `reps` calls under torch.profiler: {kernel name: (ms, launches)}; empty
@@ -380,28 +327,15 @@ def cells(device="cuda"):
     return out
 
 
-def variants(lib, levers, ph, vps, sppm_mode, grid, args):
-    """{label: fn() -> (phi, count)} of every variant on one cell."""
-    out = {"port": lambda: ppm.density_launch(lib, ph, vps, sppm_mode, grid)}
-    for lanes in LANES:
-        for order in (False, True):
-            out[f"grid, {lanes} lanes, {'cell' if order else 'pixel'} order"] = (
-                lambda lanes=lanes, order=order: lever_launch(levers, ph, vps, sppm_mode, grid,
-                                                              lanes, order))
-    out["dense kernel (first design)"] = lambda: dense_launch(levers, ph, vps, sppm_mode)
-    out["plain twin"] = lambda: ppm.density_plain(*args)
-    return out
-
-
 def profile(reps=10, checks=3, out=DEFAULT_OUT):
-    """Check and time every variant on every cell. Returns {"cells": {cell:
-    {"bounds", "cuda_launches", "pair_tests", "pair_tests_plain", "checks":
-    {label: ...}, "ms": {label: [in order, in reverse]}}}, "card", "table"};
-    raises if a variant disagrees with the twin."""
+    """Check and time the port's estimate and the twin on every cell.
+    Returns {"cells": {cell: {"bounds", "grid", "port_kernels",
+    "cuda_launches", "pair_tests", "pair_tests_plain", "check", "ms": {label:
+    [in order, in reverse]}}}, "card", "table"}; raises if the port
+    disagrees with the twin."""
     if not torch.cuda.is_available():
         raise RuntimeError("the density profile needs a CUDA device")
-    cuda_build.compile_sources([ppm.SRC, LEVERS_SRC])
-    lib, levers = ppm.build(), load_levers()
+    lib = ppm.build()
     res = {"cells": {}, "card": f"{torch.cuda.get_device_name(0)} ({smi_line()})"}
     for name, (args, grid) in cells().items():
         sppm_mode = args[-1]
@@ -410,26 +344,23 @@ def profile(reps=10, checks=3, out=DEFAULT_OUT):
         stats, plain_stats = {}, {}
         ppm.density_launch(lib, ph, vps, sppm_mode, grid, stats=stats, pair_tests=True)
         ppm.density_binned_plain(*args, grid, stats=plain_stats)
+        fns = {"port": lambda: ppm.density_launch(lib, ph, vps, sppm_mode, grid),
+               "plain twin": lambda: ppm.density_plain(*args)}
         cell = {"bounds": bounds(args, want), "grid": list(grid.dims),
-                "port_kernels": kernel_times(
-                    lambda: ppm.density_launch(lib, ph, vps, sppm_mode, grid)),
+                "port_kernels": kernel_times(fns["port"]),
                 "cuda_launches": stats["cuda_launches"],
                 "pair_tests": int(stats["pair_tests"].item()),
-                "pair_tests_plain": plain_stats["pair_tests"], "checks": {}, "ms": {}}
-        fns = variants(lib, levers, ph, vps, sppm_mode, grid, args)
-        for label, fn in fns.items():
-            if label == "plain twin":
-                continue
-            c = check(fn, want, checks)
-            cell["checks"][label] = c
-            if not c["ok"]:
-                raise RuntimeError(f"{label} disagrees with the plain twin on {name}: {c}")
+                "pair_tests_plain": plain_stats["pair_tests"],
+                "check": check(fns["port"], want, checks), "ms": {}}
+        if not cell["check"]["ok"]:
+            raise RuntimeError(f"the port disagrees with the plain twin on {name}: "
+                               f"{cell['check']}")
         for order in (list(fns), list(fns)[::-1]):
             for label in order:
                 cell["ms"].setdefault(label, []).append(
                     device_ms(fns[label], 2 if label == "plain twin" else reps))
         res["cells"][name] = cell
-        del ph, vps, want
+        del ph, vps, want, fns
     out = Path(out)
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(report(res, reps))
@@ -440,12 +371,12 @@ def profile(reps=10, checks=3, out=DEFAULT_OUT):
 def report(res, reps):
     names = list(res["cells"])
     lines = [
-        "# Photon density estimate: the grid kernel, its levers, the dense kernel",
+        "# Photon density estimate: the grid kernel against its plain twin",
         "",
         f"Card: {res['card']}; torch {torch.__version__}, CUDA {torch.version.cuda}.",
         f"Device ms per estimate (`device_ms`, {reps} estimates behind a held stream; the "
-        "twin 2), timed in order / in reverse order. Every variant's counts equal the twin's "
-        "and its phi is allclose in every check, and equal to the bit between calls.",
+        "twin 2), timed in order / in reverse order. The port's counts equal the twin's and "
+        "its phi is allclose in every check, and equal to the bit between calls.",
         "",
     ]
     for name in names:
@@ -461,7 +392,7 @@ def report(res, reps):
             f"{b['bytes']} bytes), the dense form's {b['dense_bound_ms']:.4f} ms; the port's "
             "kernels (ms an estimate, torch.profiler): " + ", ".join(
                 f"{k} {ms:.4f} x{n:g}" for k, (ms, n) in c["port_kernels"].items()))
-    lines += ["", "| variant | " + " | ".join(names) + " |", "|---|" + "---|" * len(names)]
+    lines += ["", "| estimate | " + " | ".join(names) + " |", "|---|" + "---|" * len(names)]
     for label in res["cells"][names[0]]["ms"]:
         lines.append(f"| {label} | " + " | ".join(
             "/".join(f"{t:.4f}" for t in res["cells"][n]["ms"][label]) for n in names) + " |")

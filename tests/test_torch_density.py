@@ -224,18 +224,6 @@ def test_profile_needs_cuda(tmp_path):
         pd.profile(out=tmp_path / "p.md")
 
 
-def test_lever_switches_are_the_sources_cases():
-    """The lanes the profile names are exactly the cases the lever source
-    launches, the port's among them; the source includes the port's."""
-    import re
-
-    src = pd.LEVERS_SRC.read_text()
-    assert set(pd.LANES) == {int(c) for c in re.findall(r"case (\d+):", src)}
-    assert '#include "../csrc/ppm_density.cu"' in src
-    lanes = re.search(r"constexpr int kLanes = (\d+);", ppm.SRC.read_text())
-    assert int(lanes.group(1)) in pd.LANES
-
-
 def test_bounds_count_bytes_and_passing_pairs(captured):
     """The implementation-independent bound reads only the bytes the
     function needs (every alive flag; an alive photon's wi and n; a photon

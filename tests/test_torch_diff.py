@@ -415,18 +415,23 @@ def test_two_pass_equals_whole_frame_autograd(cases):
 @pytest.mark.parametrize("name", ["env", "bitmap"])
 def test_one_pass_equals_two_passes(cases, name):
     """Through the texel fetch's backward: image_grads of a frame that fits
-    one chunk runs no primal, and gives the loss, image and gradients of the
-    two-pass route (a primal, then 200-lane chunks) to rtol 1e-5."""
+    one chunk renders that one chunk and no primal (the `path.chunks`
+    counter of a profiler session), and gives the loss, image and gradients
+    of the two-pass route (the primal's chunks, then 200-lane chunks) to
+    rtol 1e-5."""
     ps, case = cases[name].ps, cases[name]
     runs = []
     for chunk in (1 << 20, 200):
-        stats = {}
-        runs.append((*image_grads(ps, case.names, lambda r: r.mean(), seed=case.seed,
-                                  depth_cap=case.depth_cap, chunk_size=chunk, stats=stats),
-                     stats))
-    (l1, rgb1, g1, st1), (l2, rgb2, g2, st2) = runs
-    assert st1["chunks"] == 1 and st1["primal_s"] == 0.0
-    assert st2["chunks"] > 1 and st2["primal_s"] > 0.0
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+            out = image_grads(ps, case.names, lambda r: r.mean(), seed=case.seed,
+                              depth_cap=case.depth_cap, chunk_size=chunk)
+        runs.append((*out, tracing.read()[tracing.PATH_CHUNKS]))
+    (l1, rgb1, g1, c1), (l2, rgb2, g2, c2) = runs
+    n_lanes = ps.film_width * ps.film_height * ps.spp
+    primal = -(-n_lanes // pdriver.pick_chunk(pdriver.DEFAULT_CHUNK, ps.spp, n_lanes))
+    chunks = -(-n_lanes // pdriver.pick_chunk(200, ps.spp, n_lanes))
+    assert c1 == 1
+    assert chunks > 1 and c2 == primal + chunks
     np.testing.assert_allclose(float(l1), float(l2), rtol=1e-5)
     np.testing.assert_allclose(n(rgb1), n(rgb2), rtol=1e-5, atol=1e-6)
     for k in case.names:

@@ -16,7 +16,7 @@ import torch
 
 from torch_helpers import CBOX_XML, FURNACE_XML, REPO, luminance_y, n
 
-from misaki_tpu_torch.render import driver
+from misaki_tpu_torch.render import checkpoint, driver
 from misaki_tpu_torch.render import film as film_mod
 from misaki_tpu_torch.scene.compiler import compile_scene, load_and_compile
 from misaki_tpu_torch.scene.loader import load_string
@@ -96,15 +96,16 @@ def test_checkpoint_rejects_mismatched_render(scene, tmp_path, other, caplog):
     fp = driver._scene_fingerprint(scene, 3, 3, chunk)
     film = film_mod.new_film_flat(scene.film_height, scene.film_width, 5, scene.filter_type,
                                   scene.filter_stddev)
-    driver.save_checkpoint(ck, film + 1.0, 2, fp)
-    got = driver.load_checkpoint(ck, fp, scene.device)
-    assert got is not None and got[1] == 2 and torch.equal(got[0], film + 1.0)
+    checkpoint.save(ck, {"film_flat": (film + 1.0).numpy(), "next_chunk": np.int64(2)}, fp)
+    got = checkpoint.load(ck, fp)
+    assert got is not None and got["next_chunk"] == 2
+    assert torch.equal(torch.from_numpy(got["film_flat"]), film + 1.0)
 
     seed, chunk_size = (4, CHUNK) if other == "seed" else (3, 2 * CHUNK)
     other_fp = driver._scene_fingerprint(scene, seed, 3, driver.pick_chunk(
         chunk_size, scene.spp, n_total))
     with caplog.at_level(logging.WARNING, logger="misaki_tpu_torch"):
-        assert driver.load_checkpoint(ck, other_fp, scene.device) is None
+        assert checkpoint.load(ck, other_fp) is None
         out = driver.render(scene, seed=seed, chunk_size=chunk_size, depth_cap=3,
                             checkpoint_path=ck)
     assert "does not match this render" in caplog.text
@@ -259,51 +260,3 @@ def test_cli_writes_one_exr_per_aov(tmp_path):
                 assert not got["B"].any()
             else:
                 np.testing.assert_array_equal(got["B"], img[..., 2])
-
-
-def test_bench_prints_headline_first(capsys, monkeypatch):
-    """The port's bench on the CPU at a tiny size: its first line is the
-    headline JSON object; rays per sample count each integrator's casts; the
-    extras keep their pinned depth cap whatever `--depth` says."""
-    import json
-
-    from misaki_tpu_torch.tools import bench
-
-    assert bench.main(["--device", "cpu", "--spp", "1", "--width", "16", "--height", "16",
-                       "--reps", "1", "--no-extra"]) == 0
-    first = json.loads(capsys.readouterr().out.splitlines()[0])
-    assert first["metric"] == "cbox_4bounce_rays_per_s" and first["value"] > 0
-    assert first["device"] == "cpu"
-    debug = load_and_compile(str(REPO / "misaki_tpu_torch/scenes/bunny_debug.xml"), spp=1,
-                             width=8, height=8, device="cpu")
-    direct = load_and_compile(str(REPO / "misaki_tpu_torch/scenes/cbox/direct.xml"), spp=1,
-                              width=8, height=8, device="cpu")
-    assert bench.rays_per_sample(debug, 4) == 1
-    assert bench.rays_per_sample(direct, 4) == 5
-    assert bench.rays_per_sample(direct.replace(integrator="path", max_depth=5), 4) == 9
-    # volpath: the camera ray, then 4 transmittance segments and the next
-    # cast per iteration, max_depth iterations where it is set, else the cap
-    assert bench.rays_per_sample(direct.replace(integrator="volpath", max_depth=-1), 8) == 41
-    assert bench.rays_per_sample(direct.replace(integrator="volpath", max_depth=3), 8) == 16
-
-    # the extras' frames stood in by one second each: what is timed, at which cap
-    caps = []
-
-    def one_second_frames(scene, reps, chunk, depth_cap):
-        caps.append(depth_cap)
-        n_samples = scene.film_width * scene.film_height * scene.spp
-        return 1.0, n_samples * bench.rays_per_sample(scene, depth_cap)
-
-    monkeypatch.setattr(bench, "time_frames", one_second_frames)
-    extras = {}
-    for depth in (2, 4):
-        caps.clear()
-        assert bench.main(["--device", "cpu", "--spp", "1", "--width", "16", "--height", "16",
-                           "--depth", str(depth)]) == 0
-        lines = capsys.readouterr().out.splitlines()
-        assert json.loads(lines[0])["metric"] == "cbox_4bounce_rays_per_s"
-        extras[depth] = json.loads(lines[1])["extra"]
-        assert caps == [depth, 4, 4, 4]
-    assert extras[2] == extras[4]
-    assert extras[2]["figure2_roughconductor_rays_per_s"] == 320 * 180 * 16 * 9
-    assert extras[2]["teapot_volpath_rays_per_s"] == 320 * 180 * 16 * 21

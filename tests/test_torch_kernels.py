@@ -39,8 +39,7 @@ from misaki_tpu_torch.scene import procedural
 from misaki_tpu_torch.scene.compiler import load_and_compile
 from misaki_tpu_torch.scenes.envlit import assets
 from misaki_tpu_torch.scenes.materials import assets as materials_assets
-from misaki_tpu_torch.tools import (profile_cluster_frame, profile_ppm_density,
-                                    profile_texel_fetch_levers)
+from misaki_tpu_torch.tools import profile_cluster_frame, profile_ppm_density
 from misaki_tpu_torch.tools.tie_case import merge_clusters
 from misaki_tpu_torch.utils import tracing
 
@@ -537,19 +536,6 @@ def test_no_backward_launch_in_an_inference_frame(small_envlit):
     assert tracing.launches["fetch_bwd"] == b0
 
 
-def test_lever_profile_variants_match_plain(small_envlit, tmp_path):
-    """Every variant of the lever profile, the port's fetch4 and a compared
-    source (the port's own) equal the twin on every cell of the small
-    envlit scene (the profile raises otherwise), each timed twice."""
-    res = profile_texel_fetch_levers.profile([tf.SRC], reps=2, out=tmp_path / "l.md",
-                                             scene=small_envlit)
-    assert len(res["ms"]) == len(profile_texel_fetch_levers.VARIANTS) + 2
-    for per in res["ms"].values():
-        assert set(per) == set(profile_texel_fetch_levers.CELLS)
-        assert all(len(t) == 2 and min(t) > 0 for t in per.values())
-    assert "(N, 4) EF" in (tmp_path / "l.md").read_text()
-
-
 def test_envlit_cuda_render_matches_cpu(tmp_path):
     xml = assets.write_assets(tmp_path, (64, 128), 64)
     scene = load_and_compile(str(xml), spp=4, width=32, height=24, device="cpu")
@@ -709,22 +695,6 @@ def test_density_kernel_adversarial(case, sppm_mode):
     assert res["ok"], res
     ppm.density_binned_plain(*args, grid, stats=plain_stats)
     assert int(stats["pair_tests"].item()) == plain_stats["pair_tests"]
-
-
-def test_density_levers_match_twin():
-    """Every lever of tools/ppm_density_levers.cu (lanes 1-32, pixel or cell
-    order) and the first, dense kernel on the adversarial mix: counts equal,
-    phi allclose, two calls equal to the bit."""
-    from misaki_tpu_torch.render import ppm
-
-    pd = profile_ppm_density
-    args = pd.to_args(*pd.mixed(), False, "cuda")
-    ph, vps = ppm.pack_inputs(*args[:-1])
-    want = ppm.density_plain(*args)
-    fns = pd.variants(ppm.build(), pd.load_levers(), ph, vps, False, pd.adversarial_grid(), args)
-    for label, fn in fns.items():
-        res = pd.check(fn, want, calls=2)
-        assert res["ok"], (label, res)
 
 
 @pytest.mark.parametrize("integrator", ["sppm", "photonmapper"])

@@ -210,7 +210,7 @@ def test_port_never_imports_jax():
         "  'misaki_tpu_torch.render.film', 'misaki_tpu_torch.render.driver',\n"
         "  'misaki_tpu_torch.bsdf.kernels', 'misaki_tpu_torch.emitter.kernels',\n"
         "  'misaki_tpu_torch.render.aov', 'misaki_tpu_torch.utils.logging',\n"
-        "  'misaki_tpu_torch.tools.bench', 'misaki_tpu_torch.parallel.sharding',\n"
+        "  'misaki_tpu_torch.render.checkpoint', 'misaki_tpu_torch.parallel.sharding',\n"
         "  'misaki_tpu_torch.graft_entry']\n"
         "for m in mods: importlib.import_module(m)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"

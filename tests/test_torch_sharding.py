@@ -75,7 +75,7 @@ def runs(scenes):
     """One process group a world size: the cbox film on each of its meshes,
     then (2 and 4 ranks) a train step in one autograd chunk and one in
     SMALL_GRAD_CHUNK chunks, or (8 ranks) the 15x11 film -> {world: [each
-    rank's [(result, seconds)]]}."""
+    rank's [result]]}."""
     out = {}
     for world, shapes in WORLDS.items():
         tasks = [("render", scenes["ps"], s, dict(seed=SEED, depth_cap=DEPTH)) for s in shapes]
@@ -86,7 +86,7 @@ def runs(scenes):
                        dict(target_rgb=scenes["target"], seed=TRAIN_SEED,
                             depth_cap=TRAIN_DEPTH, **kw))
                       for kw in ({}, {"chunk_size": SMALL_GRAD_CHUNK})]
-        out[world], _ = sh.run_ranks(world, sh.sharded_job, tasks, device="cpu")
+        out[world] = sh.run_ranks(world, sh.sharded_job, tasks, device="cpu")
     return out
 
 
@@ -96,7 +96,7 @@ def task(runs, world, i):
     def tensors(res):
         return [res] if isinstance(res, torch.Tensor) else [res[0], *res[1].values()]
 
-    ranks = [r[i][0] for r in runs[world]]
+    ranks = [r[i] for r in runs[world]]
     for r, res in enumerate(ranks[1:], 1):
         assert all(a.equal(b) for a, b in zip(tensors(res), tensors(ranks[0]))), r
     return ranks[0]

@@ -1,9 +1,8 @@
 """The port's kernel build helper and its profilers, on the CPU: library
 naming and build failures without nvcc, the closest-hit profiler's schedule
 statistics on the bunny stand-in's camera rays, the texel-fetch profiles'
-cells, bounds and lever variants."""
+cells and bounds."""
 
-import re
 import shutil
 
 import numpy as np
@@ -17,7 +16,6 @@ from misaki_tpu_torch.render import driver
 from misaki_tpu_torch.scene.compiler import load_and_compile
 from misaki_tpu_torch.tools import profile_cluster_frame as pcf
 from misaki_tpu_torch.tools import profile_texel_fetch as ptf
-from misaki_tpu_torch.tools import profile_texel_fetch_levers as lev
 from misaki_tpu_torch.utils import cuda_build
 
 
@@ -38,8 +36,7 @@ def test_library_named_by_source_hash(tmp_path):
 
 def test_library_hash_covers_local_includes(tmp_path):
     """A source that includes another by a quoted path is rebuilt when the
-    included file changes (the density levers include csrc/ppm_density.cu);
-    a system include is not read."""
+    included file changes; a system include is not read."""
     (tmp_path / "inc").mkdir()
     inner = tmp_path / "inc" / "inner.cuh"
     inner.write_text("constexpr int k = 1;\n")
@@ -48,9 +45,6 @@ def test_library_hash_covers_local_includes(tmp_path):
     first = cuda_build.library_path(src)
     inner.write_text("constexpr int k = 2;\n")
     assert cuda_build.library_path(src) != first
-    from misaki_tpu_torch.tools import profile_ppm_density as pd
-    assert cuda_build.CSRC.joinpath("ppm_density.cu").read_bytes() in \
-        cuda_build._source_bytes(pd.LEVERS_SRC)
 
 
 def test_build_failure_names_the_source(tmp_path, monkeypatch):
@@ -132,26 +126,6 @@ def test_texel_fetch_profile_needs_cuda(tmp_path):
         pytest.skip("the texel-fetch profile runs on a CUDA machine (chip_smoke.py phase 6)")
     with pytest.raises(RuntimeError, match="CUDA"):
         ptf.profile(out=tmp_path / "p.md")
-
-
-def test_texel_fetch_lever_profile_needs_cuda(tmp_path):
-    if torch.cuda.is_available():
-        pytest.skip("the lever profile runs on a CUDA machine (tests/test_torch_kernels.py)")
-    with pytest.raises(RuntimeError, match="CUDA"):
-        lev.profile(out=tmp_path / "p.md")
-
-
-def test_lever_variants_are_the_sources_cases():
-    """The variants the lever profile names are exactly the (stride, levers)
-    cases that texel_fetch_levers.cu launches, and include the port's set
-    (stream evict-first and row spans on the (N, 3) table)."""
-    flags = {"EF": lev.EF, "EL": lev.EL, "SP": lev.SPANS, "TL": lev.TWO_LANES}
-    cases = {(int(stride), sum(flags[f.strip()] for f in expr.split("|")) if expr else 0)
-             for stride, expr in re.findall(r"case (\d) \* 16(?: \+ \(?([A-Z| ]+?)\)?)?:",
-                                            lev.SRC.read_text())}
-    variants = [(stride, levers) for _, stride, levers in lev.VARIANTS]
-    assert len(set(variants)) == len(variants) and set(variants) == cases
-    assert (3, lev.EF | lev.SPANS) in cases
 
 
 @pytest.mark.parametrize("w99,sectors,texels", [(0.0, 3, 4), (1.0, 4, 5)])
