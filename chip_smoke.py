@@ -11,9 +11,9 @@ own, beside its twin and its bound.
 
 Phases, one line each; any failure exits non-zero:
   1. a CUDA device is present (name and power limit from nvidia-smi);
-  2. the kernels build from csrc/cluster.cu, csrc/texel_fetch.cu and
-     csrc/ppm_density.cu with nvcc (sm_90a), one nvcc per source, started
-     together;
+  2. the kernels build from csrc/cluster.cu, csrc/texel_fetch.cu,
+     csrc/ppm_density.cu and csrc/pcg32.cu with nvcc (sm_90a), one nvcc per
+     source, started together;
   3. each cluster kernel against its plain PyTorch twin on the card: the
      bunny stand-in (20,480 faces, 160 clusters) with 2^20 camera-like and
      2^20 random rays, the Cornell box with 2^20 camera rays, the bunny with
@@ -22,7 +22,8 @@ Phases, one line each; any failure exits non-zero:
      faces; both device times and each cast's bound;
   4. one cbox frame at the benchmark spec (256x256, 64 spp, 4 bounces,
      2^20-lane chunks) through render() on cuda, the launch counters reset
-     just before it and checked after; image checks;
+     just before it and checked after (the PCG32 kernel's too: a chunk's
+     seeding, its camera group and one group a bounce); image checks;
   5. a small cbox render on cuda against the same render on the CPU;
   6. the texel-fetch kernel against its plain twin at 2^20 lanes
      (misaki_tpu_torch.tools.profile_texel_fetch): random bilinear taps into
@@ -142,7 +143,13 @@ Phases, one line each; any failure exits non-zero:
      share the card over gloo: render_sharded on a (2,) mesh and
      render_sharded_2d on (1, 2) and (2, 1) against (a)'s film,
      train_step_sharded on (2,) against (b)'s gradients, every rank's
-     results the same, then dryrun_multichip(2).
+     results the same, then dryrun_multichip(2);
+ 19. the PCG32 kernel (csrc/pcg32.cu) against its plain twins in
+     core/rng.py on the card, at 2^20 and 2^22 lanes: a seeding of
+     driver.make_rng's streams and a group of 6 draws, limbs and floats equal
+     to the bit; both device times and each entry point's bound (bytes: a
+     seeding reads 8 B of lanes and writes 32 B of state a lane, a group of
+     k draws reads 32 B and writes 16 + 4k B).
 Frames pass `quiet`, a progress callback that reports nothing, so the
 driver's progress log stays out of the output. Every kernel time is a
 device time taken one way (`profile_cluster_frame.device_ms`: CUDA events
@@ -333,23 +340,41 @@ def read_counts():
                                              "density")}
 
 
+def pcg32_per_chunk(scene, depth_cap):
+    """The PCG32 launches of a chunk of `scene`: the seeding and the camera's
+    group (driver.primary_rays), then one group a bounce under path, one an
+    emitter and one a BSDF sample under direct, none under debug, the
+    channel's and one a bounce under volpath; aov its nested integrator's."""
+    from misaki_tpu_torch.render.integrator import n_bounce_iters, volpath_iters
+
+    name = scene.aov_nested if scene.integrator == "aov" else scene.integrator
+    per = {"path": lambda: n_bounce_iters(scene, depth_cap),
+           "direct": lambda: (max(scene.direct_light_samples, 1)
+                              + max(scene.direct_bsdf_samples, 1)),
+           "volpath": lambda: 1 + volpath_iters(scene, depth_cap),
+           "debug": lambda: 0}[name]()
+    return 2 + per
+
+
 def checked_frame(scene, label, want_per_chunk, depth_cap=BENCH_DEPTH):
     """One frame of `scene` through render() on cuda in the benchmark's
     chunks, with every launch count set to 0 just before it and read just
-    after; fails unless the counts are chunks * `want_per_chunk` and the
-    fetch's backward and the density estimate never ran. Returns (the
-    frame's output, its launches)."""
+    after; fails unless the counts are chunks * `want_per_chunk` (the PCG32
+    kernel's chunks * `pcg32_per_chunk`) and the fetch's backward and the
+    density estimate never ran. Returns (the frame's output, its
+    launches)."""
     import torch
 
     from misaki_tpu_torch.render.driver import render
+    from misaki_tpu_torch.utils import tracing
 
     n_chunks = -(-scene.film_width * scene.film_height * scene.spp // BENCH_CHUNK)
     reset_counts()
     out = render(scene, seed=1, chunk_size=BENCH_CHUNK, depth_cap=depth_cap, progress=quiet)
     torch.cuda.synchronize()
-    launches = read_counts()
+    launches = {**read_counts(), "pcg32": tracing.launches["pcg32"]}
     # a frame under inference_mode never launches the fetch's backward
-    want = {"fetch_bwd": 0, "density": 0,
+    want = {"fetch_bwd": 0, "density": 0, "pcg32": n_chunks * pcg32_per_chunk(scene, depth_cap),
             **{k: n_chunks * v for k, v in want_per_chunk.items()}}
     phase(label, f"{scene.film_width}x{scene.film_height} {scene.spp} spp, {scene.integrator}, "
                  f"depth cap {depth_cap}, {n_chunks} chunks of {BENCH_CHUNK}: launches "
@@ -1125,7 +1150,8 @@ def checked_ppm_frame(scene, label):
     """One frame of a photon-mapping `scene` through render() on cuda, with
     every launch count set to 0 just before it and read just after; fails
     unless they are iterations x the structure's
-    `ppm.launches_per_iteration`. Returns (its output, its launches)."""
+    `ppm.launches_per_iteration` (PCG32's included). Returns (its output,
+    its launches)."""
     import torch
 
     from misaki_tpu_torch.render import ppm
@@ -1135,7 +1161,7 @@ def checked_ppm_frame(scene, label):
     reset_counts()
     out = render(scene, seed=1, depth_cap=BENCH_DEPTH, progress=quiet)
     torch.cuda.synchronize()
-    launches = read_counts()
+    launches = {**read_counts(), "pcg32": tracing.launches["pcg32"]}
     budget, iters = ppm.depth_budget(scene, BENCH_DEPTH), scene.ppm_iterations
     want = {"fetch_bwd": 0, **{k: iters * v for k, v in
                                ppm.launches_per_iteration(scene, budget).items()}}
@@ -1367,6 +1393,59 @@ def phase_ppm(envlit):
     return res
 
 
+def phase_pcg32(k=6):
+    """Phase 19: the PCG32 kernel's seeding (driver.make_rng's streams, the
+    seed's words as (1,) device tensors, lanes across 2^31) and a group of
+    k draws against the plain twins on the card at 2^20 and 2^22 lanes:
+    limbs and floats equal to the bit; each side's device time, and each
+    entry point's bound: its bytes at 3.35 TB/s (a draw's integer
+    operations are far below the card's rate). Returns its numbers."""
+    import torch
+
+    from misaki_tpu_torch.core import rng
+    from misaki_tpu_torch.render import driver
+    from misaki_tpu_torch.tools.profile_cluster_frame import bound_ms, device_ms
+
+    res, equal = {}, True
+    words = tuple(torch.tensor([w], dtype=torch.int64, device="cuda")
+                  for w in driver.seed_words(2654435761))
+    for log2 in (20, 22):
+        L = 1 << log2
+        lane = torch.arange(L, dtype=torch.int64, device="cuda") + (2 ** 31 - L // 2)
+
+        def seed_kernel():
+            return rng.seed_lanes(lane, *words)
+
+        def seed_plain():
+            return rng.seed_lanes_plain(lane, *words)
+
+        st, st_p = seed_kernel(), seed_plain()
+        got, got_st = rng.next_floats(st, k)
+        want, want_st = rng.next_floats_plain(st_p, k)
+        torch.cuda.synchronize()
+        same = (all(torch.equal(st[n], st_p[n].expand_as(st[n])) for n in rng.LIMBS)
+                and all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                        for a, b in zip(got, want))
+                and all(torch.equal(got_st[n], want_st[n].expand_as(got_st[n]))
+                        for n in rng.LIMBS))
+        equal = equal and same
+        r = {"lanes": L, "k": k, "equal": same,
+             "seed_ms": device_ms(seed_kernel, 20), "seed_plain_ms": device_ms(seed_plain, 3),
+             "seed_bound_ms": bound_ms(L * (8 + 32), 0)[0],
+             "draws_ms": device_ms(lambda: rng.next_floats(st, k), 20),
+             "draws_plain_ms": device_ms(lambda: rng.next_floats_plain(st_p, k), 3),
+             "draws_bound_ms": bound_ms(L * (32 + 16 + 4 * k), 0)[0]}
+        res[str(log2)] = r
+        phase("19", f"2^{log2} lanes: equal to the twins {same}; seeding kernel_ms="
+                    f"{r['seed_ms']:.4f} plain_ms={r['seed_plain_ms']:.4f} bound_ms="
+                    f"{r['seed_bound_ms']:.4f} (bytes); {k} draws kernel_ms={r['draws_ms']:.4f} "
+                    f"plain_ms={r['draws_plain_ms']:.4f} bound_ms={r['draws_bound_ms']:.4f} "
+                    f"(bytes)")
+    if not equal:
+        fail("phase 19: the PCG32 kernel differs from its plain twins")
+    return {"equal": equal, **res}
+
+
 def phase_sharding(smi_line):
     """Phase 18: parallel/sharding.py on the one card. (a) world size 1 over
     NCCL on cuda:0: a render_sharded frame of cbox at the benchmark spec
@@ -1595,6 +1674,7 @@ def main():
     import numpy as np
 
     from misaki_tpu_torch.accel import cluster as cl
+    from misaki_tpu_torch.core import rng
     from misaki_tpu_torch.render import driver, ppm
     from misaki_tpu_torch.render import texel_fetch as tf
     from misaki_tpu_torch.render.integrator import n_bounce_iters
@@ -1607,11 +1687,12 @@ def main():
     from misaki_tpu_torch.utils import cuda_build
 
     # ---- phase 2: build, one nvcc per source, all started together
-    srcs = [cl.SRC, tf.SRC, ppm.SRC]
+    srcs = [cl.SRC, tf.SRC, ppm.SRC, rng.SRC]
     libs = cuda_build.compile_sources(srcs)
     cl.build()
     tf.build()
     ppm.build()
+    rng.build()
     phase("2", f"built {', '.join(p.name for p in libs)} from "
                f"{', '.join(str(src.relative_to(ROOT)) for src in srcs)}")
 
@@ -1793,6 +1874,9 @@ def main():
     # ---- phase 18: sharding on torch.distributed (one card)
     sharding = phase_sharding(smi_line)
 
+    # ---- phase 19: the PCG32 kernel vs its plain twins at 2^20 and 2^22 lanes
+    pcg32 = phase_pcg32()
+
     main_case = report["cbox_camera"]
     fa, fb, fn = (fetch_report[c] for c in ("env_random", "bitmap_camera_mips", "env_nee"))
     # {run: (launch counts, frames or steps)}: one frame of each, five steps
@@ -1815,6 +1899,11 @@ def main():
 
     def per_frame(key):
         return {run: counts.get(key, 0) / frames for run, (counts, frames) in main_runs.items()}
+
+    def counted_per_frame(key):
+        """per_frame of the runs whose launch checks count `key`."""
+        return {run: counts[key] / frames for run, (counts, frames) in main_runs.items()
+                if key in counts}
 
     bwd, bp = grad["backward_kernel"], grad["backward_on_path"]
     dens_all = photon["density_kernel"]
@@ -1906,6 +1995,20 @@ def main():
          "tolerance_used": max(d["tolerance_used"] for d in dens_all.values()),
          **{f"{cell}_{k}": dens_all[cell][k] for cell in dens_all if cell != "cbox_sppm"
             for k in ("ms", "plain_ms", "bound_ms", "dense_bound_ms", "pair_tests")}},
+        {"name": "pcg32", "route": "cuda", "source": "misaki_tpu_torch/csrc/pcg32.cu",
+         "replaces": None,
+         "replaces_note": "no Pallas kernel: misaki_tpu/core/rng.py's PCG32 is plain jnp",
+         # launches: the seedings and groups of draws of the frames whose
+         # launch checks count them (phases 4, 7, 9-13, 16, 17); ms etc.: a
+         # group of 6 draws at 2^20 lanes, its seeding beside it
+         "launches": launches("pcg32"),
+         "launches_per_frame": counted_per_frame("pcg32"),
+         "max_abs_err": 0.0 if pcg32["equal"] else None,
+         "ms": pcg32["20"]["draws_ms"], "plain_ms": pcg32["20"]["draws_plain_ms"],
+         "bound_ms": pcg32["20"]["draws_bound_ms"], "bound_by": "bytes", "library_ms": None,
+         **{f"{key}_{log2}": pcg32[log2][key] for log2 in ("20", "22")
+            for key in ("seed_ms", "seed_plain_ms", "seed_bound_ms", "draws_ms",
+                        "draws_plain_ms", "draws_bound_ms")}},
     ]}
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
         {"device": device_name, "nvidia_smi": smi_line, "cluster_kernels": report,
@@ -1916,7 +2019,8 @@ def main():
          "gallery": {"launches": launches_gal, "cuda_vs_cpu": gal_cuda_vs_cpu},
          "testballs": balls, **new_paths,
          "checkpoint": checkpoint, "cbox_train": train, "envlit_gradient": grad,
-         "volpath": volpath, "photon_mapping": photon, "sharding": sharding},
+         "volpath": volpath, "photon_mapping": photon, "sharding": sharding,
+         "pcg32": pcg32},
         indent=1))
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name,

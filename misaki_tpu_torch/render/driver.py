@@ -46,10 +46,7 @@ def make_rng(lane, seed):
     seed: an int, or its `seed_words` as Python ints or as (1,) int64
     tensors (a captured chunk's inputs), which give the same bits."""
     state, mix, seq = seed if isinstance(seed, tuple) else seed_words(seed)
-    lane = lane.to(torch.int64) & _M32
-    if isinstance(seq, torch.Tensor):
-        state, seq = state.expand_as(lane), seq.expand_as(lane)
-    return rng.seed((state, lane), (lane ^ mix, seq))
+    return rng.seed_lanes(lane.to(torch.int64), state, mix, seq)
 
 
 def primary_rays(scene, lane, seed):
@@ -61,11 +58,9 @@ def primary_rays(scene, lane, seed):
     py = (pixel // scene.film_width).to(torch.float32)
 
     state = make_rng(lane, seed)
-    jitter, state = rng.next_2d(state)
-    wav_u, state = rng.next_float32(state)
-    _lens, state = rng.next_2d(state)
+    (jitter_x, jitter_y, wav_u, _lens_x, _lens_y), state = rng.next_floats(state, 5)
 
-    pos = (px + jitter[0], py + jitter[1])
+    pos = (px + jitter_x, py + jitter_y)
     # crop window: the camera spans the full sensor; film-local positions
     # are offset into it (film.cpp crop semantics)
     cam_pos = (pos[0] + scene.crop_x, pos[1] + scene.crop_y)

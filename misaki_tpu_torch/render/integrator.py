@@ -91,10 +91,8 @@ def sample_path(scene, ray, rng_state, depth_cap=DEFAULT_MAX_DEPTH_CAP):
             depth = i + 1  # the reference's loop variable
 
             # -------- draws (unconditional, fixed order) --------
-            u_nee, rng_state = rng.next_2d(rng_state)
-            u_bsdf1, rng_state = rng.next_float32(rng_state)
-            u_bsdf2, rng_state = rng.next_2d(rng_state)
-            u_rr, rng_state = rng.next_float32(rng_state)
+            u, rng_state = rng.next_floats(rng_state, 6)
+            u_nee, u_bsdf1, u_bsdf2, u_rr = u[0:2], u[2], u[3:5], u[5]
 
             p = bsdf.material_params(scene, si["bsdf"], si["uv"], wavelengths,
                                      duv=(si["duv_dx"], si["duv_dy"]))
@@ -257,9 +255,8 @@ def sample_direct(scene, ray, rng_state):
     # -------- BSDF sampling (direct.cpp:116-136) --------
     for _ in range(n_bsdf):
         with tracing.span(tracing.BOUNCE):
-            u1, rng_state = rng.next_float32(rng_state)
-            u2, rng_state = rng.next_2d(rng_state)
-            bs = bsdf.sample_bsdf(p, si["wi"], u1, u2)
+            u, rng_state = rng.next_floats(rng_state, 3)
+            bs = bsdf.sample_bsdf(p, si["wi"], u[0], u[1:3])
             wo_world = frame.to_world(si["sh"], bs["wo"])
             go = active & bs["valid"]
             hit2 = traverse.intersect(
@@ -420,12 +417,9 @@ def sample_volpath(scene, ray, rng_state, depth_cap=DEFAULT_MAX_DEPTH_CAP):
             depth = idx + 1
 
             # -------- draws (unconditional, fixed order) --------
-            u_dist, rng_state = rng.next_float32(rng_state)
-            u_nee, rng_state = rng.next_2d(rng_state)
-            u_phase, rng_state = rng.next_2d(rng_state)
-            u_bsdf1, rng_state = rng.next_float32(rng_state)
-            u_bsdf2, rng_state = rng.next_2d(rng_state)
-            u_rr, rng_state = rng.next_float32(rng_state)
+            u, rng_state = rng.next_floats(rng_state, 9)
+            u_dist, u_nee, u_phase, u_bsdf1, u_bsdf2, u_rr = (u[0], u[1:3], u[3:5], u[5],
+                                                              u[6:8], u[8])
 
             in_medium = medium >= 0
             mp = med.fetch_medium(scene, medium, wavelengths)

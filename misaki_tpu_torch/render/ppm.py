@@ -98,18 +98,22 @@ def photon_count(scene):
 def launches_per_iteration(scene, budget):
     """The kernel launches of one iteration at depth budget `budget`, as
     this module's loops make them: {"closest", "anyhit", "density",
-    "fetch"}. Texel fetches: one per bitmap of each bitmap slot at every
-    material evaluation (each camera vertex, each photon continuation); with
-    an envmap, one for photon emission, one for each NEE sample (sppm) and,
-    where the environment is shown, one for the primary escape and one for
-    each camera continuation's escape."""
+    "fetch", "pcg32"}. Texel fetches: one per bitmap of each bitmap slot at
+    every material evaluation (each camera vertex, each photon
+    continuation); with an envmap, one for photon emission, one for each NEE
+    sample (sppm) and, where the environment is shown, one for the primary
+    escape and one for each camera continuation's escape. PCG32: the
+    wavelength's seeding and draw, each pass's seeding and first group (the
+    camera's jitter, the photon's emission), a group at each continuation
+    of either pass, and in sppm each NEE sample's."""
     sppm = scene.integrator == "sppm"
     bitmaps = len(scene.bitmap_slots) * len(scene.bitmap_meta)
     fetch = (2 * budget - 1) * bitmaps
     if scene.has_environment and scene.emitter_kinds[scene.environment_idx] == EM_ENVMAP:
         fetch += 1 + (budget if sppm else 0) + (0 if scene.hide_emitters else budget)
     return {"closest": 2 * budget, "anyhit": budget if sppm else 0,
-            "density": budget - 1 if sppm else budget, "fetch": fetch}
+            "density": budget - 1 if sppm else budget, "fetch": fetch,
+            "pcg32": 4 + 2 * budget + (budget if sppm else 0)}
 
 
 def _kind_mask(kind, kinds, wanted):
@@ -165,7 +169,7 @@ def _lane_rng(lane, lane_offset, state, mix, seq):
     """misaki_tpu's per-iteration PCG32 streams: initstate (state, lane +
     lane_offset), initseq (lane ^ mix, seq) as (high, low) uint32 words,
     from the words of `Words`."""
-    return rng.seed((state, (lane + lane_offset) & _M32), (lane ^ mix, seq))
+    return rng.seed_lanes(lane, state, mix, seq, lane_offset)
 
 
 def _camera_pass(scene, words, wavelengths, budget, sppm_mode, rad):
@@ -270,10 +274,9 @@ def _camera_pass(scene, words, wavelengths, budget, sppm_mode, rad):
                 break
 
             # continue through non-diffuse lobes (sppm.cpp:153-174)
-            u1, state = rng.next_float32(state)
-            u2, state = rng.next_2d(state)
-            u_rr, state = rng.next_float32(state)
-            bs = bsdf.sample_bsdf(p, si["wi"], u1, u2)
+            u, state = rng.next_floats(state, 4)
+            u_rr = u[3]
+            bs = bsdf.sample_bsdf(p, si["wi"], u[0], u[1:3])
             active = active & bs["valid"] & (bs["pdf"] > 0.0)
             beta_new = beta * bs["weight"]
             q = torch.clamp(beta_new.amax(dim=0), max=0.95)
@@ -627,10 +630,8 @@ def _photon_pass(scene, words, wavelengths, vp, radius2, budget, sppm_mode, grid
     rad = emitter.radiance_all(scene, wavelengths)
     state = _lane_rng(lane, _PHOTON_LANES, words.photon_state, words.photon_mix,
                       words.seq)
-    u_sel, state = rng.next_float32(state)
-    u_pos, state = rng.next_2d(state)
-    u_dir, state = rng.next_2d(state)
-    er = emitter.sample_emitter_ray(scene, wavelengths, u_sel, u_pos, u_dir, rad)
+    u, state = rng.next_floats(state, 5)
+    er = emitter.sample_emitter_ray(scene, wavelengths, u[0], u[1:3], u[3:5], rad)
     d, flux, alive = er["d"], er["flux"], er["valid"]
     L = radius2.shape[0]
     phi = torch.zeros((4, L), device=dev)
@@ -660,10 +661,9 @@ def _photon_pass(scene, words, wavelengths, vp, radius2, budget, sppm_mode, grid
             if depth == budget - 1:
                 break
             p = bsdf.material_params(scene, si["bsdf"], si["uv"], wavelengths)
-            u1, state = rng.next_float32(state)
-            u2, state = rng.next_2d(state)
-            u_rr, state = rng.next_float32(state)
-            bs = bsdf.sample_bsdf(p, si["wi"], u1, u2)
+            u, state = rng.next_floats(state, 4)
+            u_rr = u[3]
+            bs = bsdf.sample_bsdf(p, si["wi"], u[0], u[1:3])
             alive = alive & bs["valid"] & (bs["pdf"] > 0.0)
             fnew = flux * bs["weight"]
             q = torch.clamp(fnew.amax(dim=0) / torch.clamp(flux.amax(dim=0), min=1e-20), max=0.95)

@@ -62,6 +62,9 @@ Counters:
                           renders, eager or replayed
   path.graph.replays      host: the chunks that ran as a replay of a
                           captured CUDA graph (`render/driver.py`)
+  rng.floats              host: the floats each PCG32 group of draws drew
+                          (`core/rng.py` `next_floats`, its k)
+  rng.kernel.floats       host: those of them the PCG32 kernel drew
   shard.ranks             host: the ranks of each sharded frame
   shard.lanes             host: this rank's lanes of each sharded frame
   shard.film_sum.bytes    host: the bytes each all-reduce of a sharded
@@ -79,7 +82,8 @@ the session.
 `launches` is always on, and not zeroed by a session: the launches of each
 hand-written kernel in the process ("closest", "anyhit", "fetch",
 "fetch_bwd"; "density", one a density estimate, and "density_cuda", the
-CUDA kernels those estimates enqueued).
+CUDA kernels those estimates enqueued; "pcg32", one a seeding or a group
+of draws).
 """
 
 import contextlib
@@ -104,19 +108,22 @@ PPM_ITERATIONS = "ppm.iterations"
 PPM_REPLAYS = "ppm.graph.replays"
 PATH_CHUNKS = "path.chunks"
 PATH_REPLAYS = "path.graph.replays"
+RNG_FLOATS = "rng.floats"
+RNG_KERNEL_FLOATS = "rng.kernel.floats"
 SHARD_RANKS = "shard.ranks"
 SHARD_LANES = "shard.lanes"
 SHARD_FILM_SUM_BYTES = "shard.film_sum.bytes"
 
 HOST_COUNTERS = (CAST_RAYS, DENSITY_PHOTONS, DENSITY_VPS, PPM_ITERATIONS, PPM_REPLAYS,
-                 PATH_CHUNKS, PATH_REPLAYS, SHARD_RANKS, SHARD_LANES, SHARD_FILM_SUM_BYTES)
+                 PATH_CHUNKS, PATH_REPLAYS, RNG_FLOATS, RNG_KERNEL_FLOATS, SHARD_RANKS,
+                 SHARD_LANES, SHARD_FILM_SUM_BYTES)
 # the device buffer's slots, in this order; the density kernel takes the
 # address of DENSITY_ALIVE and writes that slot and the next two
 DEVICE_COUNTERS = (CAST_LIVE, DENSITY_ALIVE, DENSITY_CONTRIBUTING, DENSITY_LIVE)
 COUNTERS = HOST_COUNTERS + DEVICE_COUNTERS
 
 launches = dict.fromkeys(("closest", "anyhit", "fetch", "fetch_bwd", "density",
-                          "density_cuda"), 0)
+                          "density_cuda", "pcg32"), 0)
 
 _NO_SPAN = contextlib.nullcontext()
 _profiler_enabled = torch.autograd._profiler_enabled

@@ -720,3 +720,104 @@ def test_ppm_on_the_card(integrator):
     assert np.isfinite(a).all()
     assert abs(a.mean() - b.mean()) <= 5e-3 * b.mean()
     assert np.abs(a - b).mean() <= 2e-2 * b.mean()
+
+
+# ---------------------------------------------------------------------------
+# PCG32 (csrc/pcg32.cu) against its twins in core/rng.py
+# ---------------------------------------------------------------------------
+
+PCG32_SEEDS = [0, 1, 7, 2654435761, 0xFFFFFFFF]   # test_torch_rng.py's SEEDS
+
+
+def _pcg32_lanes():
+    """2^20 lanes: the first 2^19, then runs up to 2^31 and 2^32 - 1."""
+    half = 1 << 19
+    return torch.cat([torch.arange(half), torch.arange(2 ** 31 - half // 2, 2 ** 31 + half // 4),
+                      torch.arange(2 ** 32 - half // 4, 2 ** 32)]).to(torch.int64)
+
+
+def _assert_limbs_equal(got, want):
+    from misaki_tpu_torch.core import rng
+
+    for name in rng.LIMBS:
+        assert torch.equal(got[name].cpu(), want[name].expand_as(got[name])), name
+
+
+@pytest.mark.parametrize("words", ["ints", "tensors"])
+@pytest.mark.parametrize("seed", PCG32_SEEDS)
+def test_pcg32_seed_matches_twin(seed, words):
+    """The seeding kernel's limbs equal the twin's to the bit over 2^20
+    lanes, for driver.make_rng's streams, ppm's (a lane offset), and a
+    generic seed (the photon frames' wavelength stream), with the words
+    given as Python ints and as (1,) int64 device tensors; one launch each."""
+    from misaki_tpu_torch.core import rng
+    from misaki_tpu_torch.render import ppm
+
+    lanes = _pcg32_lanes()
+    assert lanes.numel() == 1 << 20
+    w = driver.seed_words(seed)
+    pw = ppm.iteration_words(3, seed)
+
+    def dev(x):
+        return torch.tensor([x], dtype=torch.int64, device="cuda") if words == "tensors" else x
+
+    before = tracing.launches["pcg32"]
+    got = driver.make_rng(lanes.cuda(), tuple(dev(x) for x in w))
+    _assert_limbs_equal(got, driver.make_rng(lanes, w))
+    got = ppm._lane_rng(lanes.cuda(), dev(0x400000), dev(pw.photon_state),
+                        dev(pw.photon_mix), dev(pw.seq))
+    _assert_limbs_equal(got, ppm._lane_rng(lanes, 0x400000, pw.photon_state, pw.photon_mix,
+                                           pw.seq))
+    it = torch.tensor([3], dtype=torch.int64)
+    got = rng.seed((0xA511E9B3, it.cuda()), (dev(seed & 0xFFFFFFFF), 7))
+    _assert_limbs_equal(got, rng.seed((0xA511E9B3, it), (seed & 0xFFFFFFFF, 7)))
+    assert tracing.launches["pcg32"] == before + 3
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 5, 6, 9])
+def test_pcg32_next_floats_matches_twin(k):
+    """k draws in one launch equal k twin draws, floats and state, to the
+    bit, over 2^20 lanes of two seeds; the state passed in is unchanged, and
+    a second launch from it gives the same bits."""
+    from misaki_tpu_torch.core import rng
+
+    lanes = _pcg32_lanes()
+    for seed in (PCG32_SEEDS[1], PCG32_SEEDS[-1]):
+        cpu = driver.make_rng(lanes, seed)
+        gpu = driver.make_rng(lanes.cuda(), seed)
+        kept = {name: v.clone() for name, v in gpu.items()}
+        before = tracing.launches["pcg32"]
+        got, got_state = rng.next_floats(gpu, k)
+        assert tracing.launches["pcg32"] == before + 1
+        want, want_state = rng.next_floats_plain(cpu, k)
+        for g, wv in zip(got, want, strict=True):
+            assert torch.equal(g.cpu().view(torch.int32), wv.view(torch.int32))
+        _assert_limbs_equal(got_state, want_state)
+        _assert_limbs_equal(gpu, {name: v.cpu() for name, v in kept.items()})
+        again, _ = rng.next_floats(gpu, k)
+        assert all(torch.equal(a, g) for a, g in zip(again, got))
+
+
+@pytest.mark.parametrize("case", ["cpu_limb", "int32_limb", "short_limb", "cpu_word",
+                                  "int32_word"])
+def test_pcg32_wrappers_raise(case):
+    """A state or seeding with a limb or word on another device, of another
+    type than int64, or of another length than the lanes' is refused, and
+    nothing is launched."""
+    from misaki_tpu_torch.core import rng
+
+    lanes = torch.arange(4096, dtype=torch.int64, device="cuda")
+    state = driver.make_rng(lanes, 5)
+    before = tracing.launches["pcg32"]
+    with pytest.raises(ValueError):
+        if case == "cpu_limb":
+            rng.next_floats({**state, "inc_hi": state["inc_hi"].cpu()}, 3)
+        elif case == "int32_limb":
+            rng.next_floats({**state, "lo": state["lo"].to(torch.int32)}, 3)
+        elif case == "short_limb":
+            rng.next_floats({**state, "inc_lo": state["inc_lo"][:100]}, 3)
+        elif case == "cpu_word":
+            rng.seed_lanes(lanes, torch.ones(1, dtype=torch.int64), 0, 1)
+        else:
+            rng.seed_lanes(lanes, 1, torch.ones(1, dtype=torch.int32, device="cuda"), 1)
+    assert tracing.launches["pcg32"] == before

@@ -198,8 +198,9 @@ def test_launches_per_iteration(cbox, extra_scenes, name, integrator, monkeypatc
     counted at their call sites on the CPU: per iteration D camera casts
     and D photon casts (closest hit), D shadow casts in sppm (any hit), D - 1
     density estimates in sppm (photon depths >= 1) and D in the
-    photonmapper, and the texel fetches of envlit's bitmap and envmap and
-    the gallery's bitmap roughness."""
+    photonmapper, the texel fetches of envlit's bitmap and envmap and the
+    gallery's bitmap roughness, and the PCG32 seedings and groups of draws
+    (on the card one launch each): 4 + 2 D, and D more in sppm."""
     from misaki_tpu_torch.render import texel_fetch as ptf
 
     if name == "cbox":
@@ -207,7 +208,7 @@ def test_launches_per_iteration(cbox, extra_scenes, name, integrator, monkeypatc
     else:
         ps = extra_scenes[name][1].replace(integrator=integrator, ppm_photons=2048,
                                            ppm_iterations=2, max_depth=3)
-    calls = {"closest": 0, "anyhit": 0, "density": 0, "fetch": 0}
+    calls = {"closest": 0, "anyhit": 0, "density": 0, "fetch": 0, "pcg32": 0}
 
     def counting(key, fn):
         def wrapped(*a, **k):
@@ -219,6 +220,8 @@ def test_launches_per_iteration(cbox, extra_scenes, name, integrator, monkeypatc
     monkeypatch.setattr(ptr, "ray_test", counting("anyhit", ptr.ray_test))
     monkeypatch.setattr(pppm, "density_estimate", counting("density", pppm.density_estimate))
     monkeypatch.setattr(ptf, "fetch4_plain", counting("fetch", ptf.fetch4_plain))
+    for entry in ("seed", "seed_lanes", "next_floats"):
+        monkeypatch.setattr(prng, entry, counting("pcg32", getattr(prng, entry)))
     pdriver.render(ps, seed=1)
     D, it = pppm.depth_budget(ps, 16), ps.ppm_iterations
     sppm = integrator == "sppm"
@@ -226,6 +229,7 @@ def test_launches_per_iteration(cbox, extra_scenes, name, integrator, monkeypatc
     assert calls == {k: it * v for k, v in want.items()}
     assert want["closest"] == 2 * D and want["anyhit"] == (D if sppm else 0)
     assert want["density"] == (D - 1 if sppm else D)
+    assert want["pcg32"] == 4 + 2 * D + (D if sppm else 0)
     assert (want["fetch"] > 0) == (name != "cbox")
 
 

@@ -28,10 +28,10 @@ def test_library_named_by_source_hash(tmp_path):
     assert cuda_build.library_path(src) == first
     src.write_text("extern \"C\" int f() { return 1; }\n")
     assert cuda_build.library_path(src) != first
-    # the port's three libraries are distinct
+    # the port's four libraries are distinct
     srcs = sorted(cuda_build.CSRC.glob("*.cu"))
-    assert [s.stem for s in srcs] == ["cluster", "ppm_density", "texel_fetch"]
-    assert len({cuda_build.library_path(s).name for s in srcs}) == 3
+    assert [s.stem for s in srcs] == ["cluster", "pcg32", "ppm_density", "texel_fetch"]
+    assert len({cuda_build.library_path(s).name for s in srcs}) == 4
 
 
 def test_library_hash_covers_local_includes(tmp_path):
