@@ -447,7 +447,7 @@ def build():
     and load it. Returns the ctypes library."""
     p, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     return cuda_build.load_library(SRC, {
-        "closest_hit_launch": ([p, i64, p, p, p, i32, i32, p, p, p, p, f32, i32, p], i32),
+        "closest_hit_launch": ([p, i64, p, p, p, i32, i32, p, p, p, p, p, f32, i32, p], i32),
         "any_hit_launch": ([p, i64, p, p, p, p, f32, i32, p], i32),
     })
 
@@ -499,8 +499,10 @@ def closest_hit(rays, acc, counts=None):
     the plain twin; CUDA tensors launch the kernel. `counts`, an optional
     int32 (2, Lp) CUDA tensor, receives each ray's nodes visited and faces
     tested. While tracing is on, the kernel (or on the CPU, torch ops) adds
-    the rays with maxt >= mint to `cast.closest.live`. Returns (out (4, Lp),
-    fd (T, Lp))."""
+    the rays with maxt >= mint to `cast.closest.live`, and the kernel adds
+    the inner nodes and faces those rays visit to `cast.closest.nodes` and
+    `cast.closest.faces` (the CPU twin's tile walk has no BVH2 to count).
+    Returns (out (4, Lp), fd (T, Lp))."""
     _check_inputs(rays, acc, counts)
     if rays.device.type == "cpu":
         if tracing.enabled():
@@ -513,7 +515,8 @@ def closest_hit(rays, acc, counts=None):
     fd = torch.empty((T, Lp), dtype=torch.float32, device=rays.device)
     cuda_build.check_launch(lib.closest_hit_launch(
         rays_p, Lp, nodes_p, leaf_p, acc.tab.data_ptr(), T, B, out.data_ptr(), fd.data_ptr(),
-        counts_p, tracing.device_counter(rays.device, tracing.CAST_LIVE), pad, stack, stream),
+        counts_p, tracing.device_counter(rays.device, tracing.CAST_LIVE),
+        tracing.device_counter(rays.device, tracing.CAST_NODES), pad, stack, stream),
         "closest-hit kernel")
     tracing.launches["closest"] += 1
     return out, fd

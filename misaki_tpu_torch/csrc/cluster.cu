@@ -24,8 +24,11 @@
 // ray and write 16 B of hit and the winner's T = 36-float face row (144 B),
 // about 0.06 ms per 2^20 rays at 3.35 TB/s (any hit: 36 B, 0.011 ms); the
 // least arithmetic, one Moller-Trumbore test per hit ray, is far below that.
-// The tables are small (the 20,480-face bunny stand-in: ~10k nodes and 20k
-// faces, about 1.6 MB) and stay in L2.
+// The tables stay in the 50 MB L2 up to some 10^5 faces (the 20,480-face
+// bunny stand-in: ~10k nodes and 20k faces, about 1.6 MB). A production mesh
+// does not fit: the level-9 Sierpinski tetrahedron of the benchmark's
+// cbox-sierpinski (1,048,588 faces) has 16.8 MB of nodes and 50.3 MB of
+// leaf_tri, 67 MB, so its node and face reads go to HBM.
 //
 // Design: one thread per ray, each with its own short stack, in a
 // while-while loop (Aila and Laine, "Understanding the efficiency of ray
@@ -39,8 +42,9 @@
 // replaces made every ray of a 256-ray tile scan the union of the tile's
 // clusters, and all 161 clusters of a scene once a tile reached more than
 // 128). Nodes and faces are read as float4 through the read-only cache; the
-// kernel uses no shared memory, so the carveout goes to L1, which then holds
-// the upper levels every ray reads.
+// walk uses no shared memory (the closest hit's counters take 32 bytes a
+// block), so the carveout goes to L1, which then holds the upper levels every
+// ray reads.
 //
 // Pruning must not drop a face that mt() accepts. mt() is not watertight:
 // rounding lets it accept a ray that passes just outside a face, by up to
@@ -228,25 +232,56 @@ __device__ __forceinline__ Hit traverse(const Ray& r, const float4* __restrict__
   return h;
 }
 
+// Adds the block's (nodes, faces) to walk[0], walk[1]: a sum over each warp
+// by shuffle, over the warps in shared memory, then one atomic add a counter.
+// Every thread of the block takes part.
+__device__ __forceinline__ void block_add2(unsigned long long* walk, int a, int b) {
+  __shared__ int part[kBlock / 32][2];
+  a = __reduce_add_sync(0xffffffffu, a);
+  b = __reduce_add_sync(0xffffffffu, b);
+  if ((threadIdx.x & 31) == 0) {
+    part[threadIdx.x >> 5][0] = a;
+    part[threadIdx.x >> 5][1] = b;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    unsigned long long sa = 0, sb = 0;
+    for (int w = 0; w < kBlock / 32; ++w) {
+      sa += (unsigned)part[w][0];
+      sb += (unsigned)part[w][1];
+    }
+    if (sa > 0) atomicAdd(walk, sa);
+    if (sb > 0) atomicAdd(walk + 1, sb);
+  }
+}
+
 // live (nullable, the tracing counter cast.closest.live): adds the block's
 // rays with maxt >= mint, one atomic add a block. It counts after the ray's
 // loads, which the walk waits for anyway, so counting adds no memory latency
-// in front of the block.
+// in front of the block. walk (nullable, the counters cast.closest.nodes and
+// cast.closest.faces, adjacent): adds the inner nodes those rays slab-test
+// the children of and the faces they test, one atomic add a counter a block,
+// after the walk. A null pointer skips its count, uniformly over the grid.
 __global__ void __launch_bounds__(kBlock, 8)
 closest_hit_kernel(const float* __restrict__ rays, long long Lp,
                    const float4* __restrict__ nodes, const float4* __restrict__ leaf_tri,
                    const float* __restrict__ tab, int T, int B, float* __restrict__ out,
                    float* __restrict__ fd, int* __restrict__ counts,
-                   unsigned long long* __restrict__ live, float pad_scale) {
+                   unsigned long long* __restrict__ live, unsigned long long* __restrict__ walk,
+                   float pad_scale) {
   const long long lane = (long long)blockIdx.x * kBlock + threadIdx.x;
   const Ray r = load_ray(rays, Lp, lane < Lp ? lane : Lp - 1, __ldg(nodes + 3).z, pad_scale);
+  const bool counted = lane < Lp && r.maxt >= r.mint;
   if (live != nullptr) {  // the same for every thread of the block
-    const int n = __syncthreads_count(lane < Lp && r.maxt >= r.mint);
+    const int n = __syncthreads_count(counted);
     if (threadIdx.x == 0 && n > 0) atomicAdd(live, (unsigned long long)n);
   }
-  if (lane >= Lp) return;
+  if (lane >= Lp && walk == nullptr) return;
   int n_nodes = 0, n_faces = 0;
-  const Hit h = traverse<false>(r, nodes, leaf_tri, n_nodes, n_faces);
+  Hit h = {};
+  if (lane < Lp) h = traverse<false>(r, nodes, leaf_tri, n_nodes, n_faces);
+  if (walk != nullptr) block_add2(walk, counted ? n_nodes : 0, counted ? n_faces : 0);
+  if (lane >= Lp) return;
 
   const bool hit = h.face >= 0;
   out[0 * Lp + lane] = hit ? h.t : kBig;
@@ -283,7 +318,7 @@ any_hit_kernel(const float* __restrict__ rays, long long Lp,
   }
 }
 
-// No shared memory: give the SM's unified storage to L1.
+// Next to no shared memory: give the SM's unified storage to L1.
 template <typename K>
 cudaError_t prefer_l1(K kernel) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
@@ -297,13 +332,15 @@ unsigned grid_of(long long Lp) { return (unsigned)((Lp + kBlock - 1) / kBlock); 
 extern "C" int closest_hit_launch(const float* rays, long long Lp, const float* nodes,
                                   const float* leaf_tri, const float* tab, int T, int B,
                                   float* out, float* fd, int* counts, unsigned long long* live,
-                                  float pad_scale, int stack_depth, void* stream) {
+                                  unsigned long long* walk, float pad_scale, int stack_depth,
+                                  void* stream) {
   static const cudaError_t carveout = prefer_l1(closest_hit_kernel);
   if (carveout != cudaSuccess) return (int)carveout;
   if (Lp <= 0 || stack_depth > kStack) return (int)cudaErrorInvalidValue;
   closest_hit_kernel<<<grid_of(Lp), kBlock, 0, (cudaStream_t)stream>>>(
       rays, Lp, reinterpret_cast<const float4*>(nodes),
-      reinterpret_cast<const float4*>(leaf_tri), tab, T, B, out, fd, counts, live, pad_scale);
+      reinterpret_cast<const float4*>(leaf_tri), tab, T, B, out, fd, counts, live, walk,
+      pad_scale);
   return (int)cudaGetLastError();
 }
 

@@ -12,13 +12,16 @@ adapters) with plain, checkerboard or `bitmap` textures; `area`, `constant`,
 or `gridvolume` density (`.vol` version 3 float32 or `.npy` grids). On those
 scenes it produces the same arrays as the JAX compiler.
 
-Two differences from the JAX compiler:
+Three differences from the JAX compiler:
   * every scene gets the cluster accel (`accel/cluster.py`), built from the
     float32 geometry rows; there is no brute-force threshold and no BVH2;
   * the texture caps are the JAX compiler's paged-backend values, always
     (`BITMAP_MAX_RES`, `ENV_MAX_RES`, `ENV_RGB_MAX_RES`): a texel fetch here
     is a gather, which costs the same at any table size. There are no
-    environment overrides and no pages.
+    environment overrides and no pages;
+  * a `sierpinski` shape (`<integer name="level">`, scene/procedural.py),
+    which misaki_tpu has not, compiles to the tables that an OBJ of its
+    vertices gives both compilers.
 """
 
 from pathlib import Path
@@ -124,6 +127,7 @@ _BSDF_TYPES = {
     "dielectric", "null", "twosided", "roughplastic", "mask",
     "disney", "disney_brdf", "principled",
 }
+_SHAPE_TYPES = ("obj", "rectangle", "sphere", "sierpinski")
 _INTEGRATOR_TYPES = {"path", "aov", "debug", "volpath", "direct",
                      "sppm", "photonmapper"}
 _EMITTER_TYPES = {"constant": EM_CONSTANT, "envmap": EM_ENVMAP, "point": EM_POINT}
@@ -830,6 +834,10 @@ def _load_mesh_for_shape(shape, base_dir):
         return mesh
     if shape["type"] == "rectangle":
         return procedural.get_procedural_mesh("rectangle.obj", to_world)
+    if shape["type"] == "sierpinski":
+        if "level" not in p:
+            raise ValueError('a sierpinski shape needs <integer name="level">')
+        return procedural.sierpinski(p["level"], to_world)
     # sphere
     radius = float(p.get("radius", 1.0))
     center = np.asarray(p.get("center", (0, 0, 0)), np.float64)
@@ -918,7 +926,7 @@ def compile_scene(desc, spp=None, width=None, height=None, max_depth=None, devic
     emitter_objs = []  # (kind, shape_idx, plugin)
     face_blocks = []
     for name, ch in desc["children"]:
-        if ch["type"] in ("obj", "rectangle", "sphere"):
+        if ch["type"] in _SHAPE_TYPES:
             mesh = _load_mesh_for_shape(ch, base_dir)
             bsdf_obj = _find_child(ch, _BSDF_TYPES) or {
                 "type": "diffuse", "props": {}, "children": [],

@@ -15,6 +15,11 @@ falls back to this registry, keyed by the file's basename:
   * Mesh00x.obj      — material-testball stand-ins (sphere/base/stand).
   * teapot parts     — sphere stand-ins for teapot-full.
 
+Besides these, `sierpinski` makes the scene compiler's `sierpinski` shape:
+the recursive Sierpinski tetrahedron of Haines's Standard Procedural
+Databases (`tetra`), generated from its formula, so a million-face mesh
+needs no file.
+
 All functions return the same dict format as obj_loader.load_obj.
 """
 
@@ -212,6 +217,42 @@ _TESTBALL = {
     "Mesh002": lambda: sphere_standin(0.4, (0.0, 1.2, 0.2), sub=3),
     "Mesh003": lambda: sphere_standin(1.0, (0.0, 1.0, 0.0), sub=5),
 }
+
+
+# ---- the Sierpinski tetrahedron (SPD `tetra`) --------------------------------
+
+SIERPINSKI_MAX_LEVEL = 10
+# a regular tetrahedron of edge 1 standing on its face v0 v1 v2 in the plane
+# y = 0, its apex v3 on the y axis
+_TETRA = np.array([[-0.5, 0.0, -np.sqrt(3.0) / 6.0],
+                   [0.5, 0.0, -np.sqrt(3.0) / 6.0],
+                   [0.0, 0.0, np.sqrt(3.0) / 3.0],
+                   [0.0, np.sqrt(2.0 / 3.0), 0.0]])
+# a tetrahedron's faces by vertex, each wound so that e1 x e2 points out
+TETRA_FACES = ((0, 1, 2), (0, 3, 1), (1, 3, 2), (2, 3, 0))
+
+
+def sierpinski_tetrahedra(level):
+    """The 4^level tetrahedra of level `level`, (4^level, 4, 3) float64.
+    Level n + 1 replaces tetrahedron t of level n by its four half-size
+    corner copies 4t + k, k = 0..3, copy k with vertices (v_i + v_k) / 2:
+    vertex i keeps its role, so every copy is wound as the base is."""
+    level = int(level)
+    if not 0 <= level <= SIERPINSKI_MAX_LEVEL:
+        raise ValueError(f"sierpinski level must lie in 0..{SIERPINSKI_MAX_LEVEL}, got {level}")
+    v = _TETRA[None]
+    for _ in range(level):
+        v = (0.5 * (v[:, :, None, :] + v[:, None, :, :])).reshape(-1, 4, 3)
+    return v
+
+
+def sierpinski(level, to_world=None):
+    """The Sierpinski tetrahedron of `level` as a triangle soup of 4^(level
+    + 1) faces: tetrahedron t's faces are 4t .. 4t + 3, in the order of
+    `TETRA_FACES`. Generated in float64 and placed by `to_world` before the
+    rounding to float32, as an OBJ of the same vertices loads."""
+    tets = sierpinski_tetrahedra(level)
+    return _tris_mesh(tets[:, TETRA_FACES].reshape(-1, 3, 3), to_world=to_world)
 
 
 def get_procedural_mesh(basename, to_world=None):

@@ -49,6 +49,11 @@ Counters:
   cast.closest.rays       host: the rays of each closest-hit cast, unpadded
   cast.closest.live       device: those with maxt >= mint (dead lanes and
                           the pad carry mint 0, maxt -1)
+  cast.closest.nodes      device: the inner BVH2 nodes those rays visit (each
+                          slab-tests its two children), counted by the CUDA
+                          kernel alone (the CPU twin walks no BVH2)
+  cast.closest.faces      device: the faces those rays run Moller-Trumbore
+                          on, counted as cast.closest.nodes is
   density.photons         host: P of each estimate
   density.visible_points  host: L of each estimate
   density.alive           device: photons alive (the estimate's keys pass)
@@ -99,6 +104,8 @@ FILM_SUM = "misaki.film_sum"
 
 CAST_RAYS = "cast.closest.rays"
 CAST_LIVE = "cast.closest.live"
+CAST_NODES = "cast.closest.nodes"
+CAST_FACES = "cast.closest.faces"
 DENSITY_PHOTONS = "density.photons"
 DENSITY_VPS = "density.visible_points"
 DENSITY_ALIVE = "density.alive"
@@ -118,8 +125,10 @@ HOST_COUNTERS = (CAST_RAYS, DENSITY_PHOTONS, DENSITY_VPS, PPM_ITERATIONS, PPM_RE
                  PATH_CHUNKS, PATH_REPLAYS, RNG_FLOATS, RNG_KERNEL_FLOATS, SHARD_RANKS,
                  SHARD_LANES, SHARD_FILM_SUM_BYTES)
 # the device buffer's slots, in this order; the density kernel takes the
-# address of DENSITY_ALIVE and writes that slot and the next two
-DEVICE_COUNTERS = (CAST_LIVE, DENSITY_ALIVE, DENSITY_CONTRIBUTING, DENSITY_LIVE)
+# address of DENSITY_ALIVE and writes that slot and the next two, the
+# closest-hit kernel that of CAST_NODES and writes it and the next
+DEVICE_COUNTERS = (CAST_LIVE, DENSITY_ALIVE, DENSITY_CONTRIBUTING, DENSITY_LIVE, CAST_NODES,
+                   CAST_FACES)
 COUNTERS = HOST_COUNTERS + DEVICE_COUNTERS
 
 launches = dict.fromkeys(("closest", "anyhit", "fetch", "fetch_bwd", "density",
