@@ -1,7 +1,8 @@
 """Wavefront BSDF evaluation: sample / eval / pdf over SoA lane batches.
 
-Every lane's material row is loaded by index from the packed material table,
-and each model present in the scene (`scene.bsdf_kinds`) is computed on every
+Every lane's material column is loaded by index from the packed material
+table, only in the rows that the scene's kinds read (`material_rows`), and
+each model present in the scene (`scene.bsdf_kinds`) is computed on every
 lane and selected by the lane's material kind, as in
 `misaki_tpu.bsdf.kernels`. Models absent from the scene are not computed.
 
@@ -17,6 +18,8 @@ Conventions (bsdf.h): directions in the local shading frame, +z = normal;
 f * cos(theta_o), 0 for delta lobes; twosided flips wi.z / wo.z on back
 faces. Radiance transport: refraction scales by 1 / eta^2.
 """
+
+import functools
 
 import torch
 
@@ -58,9 +61,11 @@ from misaki_tpu_torch.scene.types import (
     MC_SPEC_TRANS,
     MC_SSW,
     MC_TWOSIDED,
+    N_MAT_COLS,
     SCALAR_SLOT_COLS,
     SPEC_SLOT_COLS,
 )
+from misaki_tpu_torch.utils import tracing
 
 _TINY = 1e-20
 
@@ -134,9 +139,63 @@ def _kind_groups(kinds):
     }
 
 
+def material_rows(kinds):
+    """The rows of the packed material table that `material_params` reads
+    under the BSDF kinds `kinds`, ascending, so that each slot stays a
+    contiguous run: the flags and scalars its dict always holds, then each
+    group that some kind reads (`_kind_groups`). Every group gives all 165."""
+    has = _kind_groups(kinds)
+    rows = [MC_KIND, MC_TWOSIDED, MC_DISTR, MC_ETA, MC_SSW, MC_NONLINEAR, MC_FDR]
+    slots = []
+    if has["reflectance"] or has["disney"]:
+        slots.append((MC_REFL, SPEC_SLOT_COLS))
+    if has["specular"]:
+        slots.append((MC_SPEC_REFL, SPEC_SLOT_COLS))
+    if has["transmission"]:
+        slots.append((MC_SPEC_TRANS, SPEC_SLOT_COLS))
+    if has["microfacet"]:
+        slots += [(MC_ALPHA_U, SCALAR_SLOT_COLS), (MC_ALPHA_V, SCALAR_SLOT_COLS)]
+    if has["conductor"]:
+        slots += [(MC_ETA_RGB, 3), (MC_K_RGB, 3)]
+    if has["disney"]:
+        slots += [(base, SCALAR_SLOT_COLS) for _, base in _DISNEY_SLOTS]
+    if has["mask"]:
+        slots += [(MC_MASK, 1), (MC_OPACITY, SPEC_SLOT_COLS)]
+    for base, width in slots:
+        rows.extend(range(base, base + width))
+    return tuple(sorted(rows))
+
+
+@functools.cache
+def _row_index(rows, device):
+    """`rows` as an int64 tensor on `device`, made once a process: the first
+    eager bounce makes it, so a CUDA graph captured after it reads the same
+    tensor on every replay. It is made outside inference mode, so a gradient
+    may save it after a frame made it."""
+    with torch.inference_mode(False):
+        return torch.tensor(rows, dtype=torch.int64, device=device)
+
+
+class _Columns:
+    """The lanes' gathered rows of the material table (`block`, (len(rows),
+    L)), read by the table's own columns: `cols[MC_ETA]` a row,
+    `cols[base: base + n]` a slot's rows."""
+
+    def __init__(self, block, rows):
+        self.block = block
+        self.at = {c: i for i, c in enumerate(rows)}
+
+    def __getitem__(self, col):
+        if isinstance(col, slice):
+            i = self.at[col.start]
+            return self.block[i: i + col.stop - col.start]
+        return self.block[self.at[col]]
+
+
 def material_params(scene, ids, uv, wavelengths, duv=None):
-    """One indexed load of every lane's packed material column, then the
-    slot evaluation. Returns the per-lane param dict shared by
+    """One indexed load of every lane's packed material column, in the rows
+    that the scene's kinds read (`material_rows`), then the slot
+    evaluation. Returns the per-lane param dict shared by
     sample/eval/pdf for the bounce. `duv` (the primary hit's texture
     footprint; zeros on bounce hits) selects the bitmap mip level. Groups of
     parameters that no kind of the scene reads are zeros (or None), as in
@@ -152,7 +211,12 @@ def material_params(scene, ids, uv, wavelengths, duv=None):
     L = ids.shape[0]
     dev = wavelengths.device
     zero_spec = torch.zeros((4, L), device=dev)
-    cols = _MaterialColumns.apply(scene.materials.params, ids.to(torch.int64))  # (N_MAT_COLS, L)
+    rows = material_rows(kinds)
+    tracing.add(tracing.MATERIAL_ROWS_GATHERED, len(rows) * L)
+    tracing.add(tracing.MATERIAL_ROWS_PACKED, N_MAT_COLS * L)
+    block = _MaterialColumns.apply(scene.materials.params, ids.to(torch.int64),
+                                   _row_index(rows, ids.device))  # (len(rows), L)
+    cols = _Columns(block, rows)
     kind = cols[MC_KIND].to(torch.int32)
 
     def spec(base):
@@ -217,23 +281,26 @@ def material_params(scene, ids, uv, wavelengths, duv=None):
 
 
 class _MaterialColumns(torch.autograd.Function):
-    """params[:, ids]: every lane's material column. Its backward sums the
-    lanes' gradients per material as one matmul with the lanes' one-hot
-    (L, B) rows, the transpose of misaki_tpu's one-hot fetch. A scatter
-    (advanced indexing's or index_add_'s) serialises the millions of lanes
-    that share each of a scene's few materials: it took most of a cbox
-    gradient step on an H100 (chip_smoke.py phase 15's profiled step)."""
+    """params[rows][:, ids]: every lane's material column in the table's
+    rows `rows`. The rows are selected first, so the lanes' gather writes
+    only those. Its backward sums the lanes' gradients per material as one
+    matmul with the lanes' one-hot (L, B) rows, the transpose of
+    misaki_tpu's one-hot fetch, and writes them into those rows of a zero
+    gradient of the whole table. A scatter (advanced indexing's or
+    index_add_'s) serialises the millions of lanes that share each of a
+    scene's few materials: it took most of a cbox gradient step on an H100
+    (chip_smoke.py phase 15's profiled step)."""
 
     @staticmethod
-    def forward(ctx, params, ids):
-        ctx.save_for_backward(ids)
-        ctx.n_materials = params.shape[1]
-        return torch.index_select(params, 1, ids)
+    def forward(ctx, params, ids, rows):
+        ctx.save_for_backward(ids, rows)
+        ctx.table_shape = params.shape
+        return torch.index_select(params.index_select(0, rows), 1, ids)
 
     @staticmethod
     def backward(ctx, grad):
-        (ids,) = ctx.saved_tensors
-        onehot = torch.zeros((ids.shape[0], ctx.n_materials), dtype=grad.dtype,
+        ids, rows = ctx.saved_tensors
+        onehot = torch.zeros((ids.shape[0], ctx.table_shape[1]), dtype=grad.dtype,
                              device=grad.device)
         onehot.scatter_(1, ids[:, None], 1.0)
         # full float32 products whatever the process allows: TF32 would
@@ -241,9 +308,11 @@ class _MaterialColumns(torch.autograd.Function):
         allow = torch.backends.cuda.matmul.allow_tf32
         torch.backends.cuda.matmul.allow_tf32 = False
         try:
-            return grad @ onehot, None
+            sums = grad @ onehot
         finally:
             torch.backends.cuda.matmul.allow_tf32 = allow
+        table = torch.zeros(ctx.table_shape, dtype=grad.dtype, device=grad.device)
+        return table.index_copy_(0, rows, sums), None, None
 
 
 def _flip_z(v, flip):

@@ -70,6 +70,11 @@ Counters:
   rng.floats              host: the floats each PCG32 group of draws drew
                           (`core/rng.py` `next_floats`, its k)
   rng.kernel.floats       host: those of them the PCG32 kernel drew
+  bsdf.cols.gathered      host: the material-table entries each
+                          `material_params` gathers, its rows x lanes
+                          (`bsdf/kernels.py` `material_rows`)
+  bsdf.cols.packed        host: N_MAT_COLS x lanes of each such gather, what
+                          a gather of the whole table would write
   shard.ranks             host: the ranks of each sharded frame
   shard.lanes             host: this rank's lanes of each sharded frame
   shard.film_sum.bytes    host: the bytes each all-reduce of a sharded
@@ -117,13 +122,16 @@ PATH_CHUNKS = "path.chunks"
 PATH_REPLAYS = "path.graph.replays"
 RNG_FLOATS = "rng.floats"
 RNG_KERNEL_FLOATS = "rng.kernel.floats"
+MATERIAL_ROWS_GATHERED = "bsdf.cols.gathered"
+MATERIAL_ROWS_PACKED = "bsdf.cols.packed"
 SHARD_RANKS = "shard.ranks"
 SHARD_LANES = "shard.lanes"
 SHARD_FILM_SUM_BYTES = "shard.film_sum.bytes"
 
 HOST_COUNTERS = (CAST_RAYS, DENSITY_PHOTONS, DENSITY_VPS, PPM_ITERATIONS, PPM_REPLAYS,
-                 PATH_CHUNKS, PATH_REPLAYS, RNG_FLOATS, RNG_KERNEL_FLOATS, SHARD_RANKS,
-                 SHARD_LANES, SHARD_FILM_SUM_BYTES)
+                 PATH_CHUNKS, PATH_REPLAYS, RNG_FLOATS, RNG_KERNEL_FLOATS,
+                 MATERIAL_ROWS_GATHERED, MATERIAL_ROWS_PACKED, SHARD_RANKS, SHARD_LANES,
+                 SHARD_FILM_SUM_BYTES)
 # the device buffer's slots, in this order; the density kernel takes the
 # address of DENSITY_ALIVE and writes that slot and the next two, the
 # closest-hit kernel that of CAST_NODES and writes it and the next

@@ -103,7 +103,8 @@ def test_the_cell_runs_correct_over_gloo_ranks(root, trace):
     res = run_cell(root, trace=trace)
     assert res["correct"], res["checks"]
     want = ({"entry_host_ms.frame", "bounce_host_ms.frame", "cast_host_ms.frame",
-             "live_lane_share.frame", "graph_replay_share.frame", "rng_kernel_share.frame"}
+             "live_lane_share.frame", "graph_replay_share.frame", "rng_kernel_share.frame",
+             "material_col_share.frame"}
             if trace else
             {"frame_s", "peak_mem_gib", "setup_s"})
     assert set(res["metrics"]) == want

@@ -105,7 +105,7 @@ def test_the_cell_passes_the_ports_output(tmp_path, trace):
     assert res["correct"] and set(res["checks"]) == {"rgb_rel_l1"}, res["checks"]
     if trace:
         assert {"live_lane_share.frame", "graph_replay_share.sppm",
-                "rng_kernel_share.frame"} <= set(res["metrics"])
+                "rng_kernel_share.frame", "material_col_share.frame"} <= set(res["metrics"])
     else:
         assert {"frame_s", "setup_s", "peak_mem_gib"} == set(res["metrics"])
 

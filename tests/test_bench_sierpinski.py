@@ -155,7 +155,7 @@ def test_the_cell_passes_the_ports_output(tmp_path, trace):
     assert set(res["checks"]) == {"rgb_rel_l1", "rgb_max_rel"}
     if trace:       # the CPU twins count no BVH2 walk: the walk readers find nothing
         assert {"live_lane_share.frame", "graph_replay_share.frame",
-                "rng_kernel_share.frame"} <= set(res["metrics"])
+                "rng_kernel_share.frame", "material_col_share.frame"} <= set(res["metrics"])
         assert not {"bvh_nodes_per_ray.frame", "bvh_faces_per_ray.frame"} & set(res["metrics"])
 
 
