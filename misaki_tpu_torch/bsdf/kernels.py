@@ -741,6 +741,13 @@ def _mask_op_prob(p):
     return torch.clamp(torch.mean(p["opacity"], dim=0), 1e-4, 1.0)
 
 
+def _count_kinds(lanes, n_kinds):
+    """The tracing counters of one call over `lanes` lanes that computes
+    `n_kinds` kinds on every lane."""
+    tracing.add(tracing.BSDF_LANES, lanes)
+    tracing.add(tracing.BSDF_KIND_LANES, lanes * n_kinds)
+
+
 def eval_bsdf(p, wi, wo):
     """f * cos_theta_o per lane (4, L); delta kinds give 0 (bsdf.h). p: the
     bounce's `material_params`."""
@@ -748,9 +755,10 @@ def eval_bsdf(p, wi, wo):
     wi = _flip_z(wi, flip)
     wo = _flip_z(wo, flip)
     out = torch.zeros_like(p["reflectance"])
-    for kval, fn in _EVAL:
-        if kval in p["kinds"]:
-            out = torch.where((p["kind"] == kval)[None, :], fn(p, wi, wo), out)
+    evals = [(kval, fn) for kval, fn in _EVAL if kval in p["kinds"]]
+    _count_kinds(out.shape[1], len(evals))
+    for kval, fn in evals:
+        out = torch.where((p["kind"] == kval)[None, :], fn(p, wi, wo), out)
     if p["mask"] is not None:
         # mask.cpp eval: the nested eval times the opacity
         out = torch.where(p["mask"][None, :], out * p["opacity"], out)
@@ -762,9 +770,10 @@ def pdf_bsdf(p, wi, wo):
     wi = _flip_z(wi, flip)
     wo = _flip_z(wo, flip)
     out = torch.zeros_like(frame.cos_theta(wi))
-    for kval, fn in _PDF:
-        if kval in p["kinds"]:
-            out = torch.where(p["kind"] == kval, fn(p, wi, wo), out)
+    pdfs = [(kval, fn) for kval, fn in _PDF if kval in p["kinds"]]
+    _count_kinds(out.shape[0], len(pdfs))
+    for kval, fn in pdfs:
+        out = torch.where(p["kind"] == kval, fn(p, wi, wo), out)
     if p["mask"] is not None:
         # mask.cpp pdf: the nested pdf times the same clamped selection
         # probability that sample_bsdf uses, so MIS sees one value
@@ -796,6 +805,7 @@ def sample_bsdf(p, wi, u1, u2):
         if p["diff"] else p
     # the compiler's kinds always hold at least one model
     cases = [(kv, fn(p_s, wi_f, u1, u2)) for kv, fn in _SAMPLE if kv in p["kinds"]]
+    _count_kinds(kind.shape[0], len(cases))
 
     def select(field, out, expand=False):
         for kval, r in cases:

@@ -31,6 +31,7 @@ from misaki_tpu_torch.scene.types import (
     EM_ENVMAP,
     EM_POINT,
 )
+from misaki_tpu_torch.utils import tracing
 
 
 def _sigmoid(coeff, wavelengths):
@@ -243,13 +244,22 @@ def _area_point(scene, ei, u2):
     """An area-uniform point on emitter `ei`'s shape (mesh.cpp:103-133): the
     face picked by the area CDF with sample reuse (distribution.h
     sample_reuse), then a uniform point of the triangle. Returns (the face
-    pack columns (EF_COLS, L), barycentrics b1, b2, the point)."""
+    pack columns (EF_COLS, L), barycentrics b1, b2, the point).
+
+    The face is a binary search of the emitter's CDF row (non-decreasing,
+    padded with 1.0 to the scene's largest emitter, Fmax faces): the count of
+    entries strictly below the lane's sample, clamped to Fmax - 1. One
+    launch a call and about log2(Fmax) reads a lane, so a mesh light of
+    thousands of faces costs about what a quad's two do. A count over the
+    whole (Fmax, L) comparison gives the same index but holds the matrix:
+    on a 5,120-face sphere at 2^20 lanes, 5 GiB of bool, 20 GiB of int32
+    and a 40 GiB int64 copy for its sum, more than an 80 GB card holds
+    beside a frame."""
     em = scene.emitters
     cdf = em.face_cdf[ei]     # (Fmax,)
     uy = u2[1]
     fmax = cdf.shape[0]
-    below = uy[None, :] > cdf[:, None]                      # (Fmax, L)
-    idx = torch.clamp(below.to(torch.int32).sum(dim=0), 0, fmax - 1)
+    idx = torch.clamp(torch.searchsorted(cdf, uy, out_int32=True), max=fmax - 1)
     fd = em.face_pack[ei][:, idx]                           # (EF_COLS, L)
     lo, hi = fd[EF_CDF_LO], fd[EF_CDF_HI]
     uy = torch.clamp((uy - lo) / torch.clamp(hi - lo, min=1e-20), 0.0, 1.0 - 1e-7)
@@ -332,6 +342,8 @@ def sample_emitter_direct(scene, ref_p, wavelengths, u2, rad=None):
     n = scene.n_emitters
     L = ref_p[0].shape[0]
     dev = ref_p[0].device
+    tracing.add(tracing.NEE_LANES, L)
+    tracing.add(tracing.NEE_SAMPLER_LANES, n * L)
     if n == 0:
         z = torch.zeros(L, device=dev)
         return {

@@ -75,6 +75,15 @@ Counters:
                           (`bsdf/kernels.py` `material_rows`)
   bsdf.cols.packed        host: N_MAT_COLS x lanes of each such gather, what
                           a gather of the whole table would write
+  bsdf.lanes              host: the lanes of each `eval_bsdf`, `pdf_bsdf`
+                          and `sample_bsdf` call (`bsdf/kernels.py`)
+  bsdf.kind_lanes         host: those calls' lanes x the BSDF kinds each
+                          computes over every lane before it selects one
+  nee.lanes               host: the lanes of each `sample_emitter_direct`
+                          call (`emitter/kernels.py`)
+  nee.sampler_lanes       host: the lanes of the emitter samplers each such
+                          call runs, summed over its emitters (each runs
+                          over every lane and keeps its own)
   shard.ranks             host: the ranks of each sharded frame
   shard.lanes             host: this rank's lanes of each sharded frame
   shard.film_sum.bytes    host: the bytes each all-reduce of a sharded
@@ -124,14 +133,18 @@ RNG_FLOATS = "rng.floats"
 RNG_KERNEL_FLOATS = "rng.kernel.floats"
 MATERIAL_ROWS_GATHERED = "bsdf.cols.gathered"
 MATERIAL_ROWS_PACKED = "bsdf.cols.packed"
+BSDF_LANES = "bsdf.lanes"
+BSDF_KIND_LANES = "bsdf.kind_lanes"
+NEE_LANES = "nee.lanes"
+NEE_SAMPLER_LANES = "nee.sampler_lanes"
 SHARD_RANKS = "shard.ranks"
 SHARD_LANES = "shard.lanes"
 SHARD_FILM_SUM_BYTES = "shard.film_sum.bytes"
 
 HOST_COUNTERS = (CAST_RAYS, DENSITY_PHOTONS, DENSITY_VPS, PPM_ITERATIONS, PPM_REPLAYS,
                  PATH_CHUNKS, PATH_REPLAYS, RNG_FLOATS, RNG_KERNEL_FLOATS,
-                 MATERIAL_ROWS_GATHERED, MATERIAL_ROWS_PACKED, SHARD_RANKS, SHARD_LANES,
-                 SHARD_FILM_SUM_BYTES)
+                 MATERIAL_ROWS_GATHERED, MATERIAL_ROWS_PACKED, BSDF_LANES, BSDF_KIND_LANES,
+                 NEE_LANES, NEE_SAMPLER_LANES, SHARD_RANKS, SHARD_LANES, SHARD_FILM_SUM_BYTES)
 # the device buffer's slots, in this order; the density kernel takes the
 # address of DENSITY_ALIVE and writes that slot and the next two, the
 # closest-hit kernel that of CAST_NODES and writes it and the next

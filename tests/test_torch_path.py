@@ -16,7 +16,8 @@ import numpy as np
 import pytest
 import torch
 
-from torch_helpers import CBOX_XML, FURNACE_XML, golden_criteria, luminance_y, n, t
+from torch_helpers import (CBOX_XML, FURNACE_XML, TWO_LIGHTS, golden_criteria, luminance_y, n,
+                           samples_at_entries, t)
 
 from misaki_tpu.accel import traverse as jtr
 from misaki_tpu.bsdf import kernels as jbsdf
@@ -24,7 +25,9 @@ from misaki_tpu.core import rng as jrng
 from misaki_tpu.emitter import kernels as jem
 from misaki_tpu.render import driver as jdriver
 from misaki_tpu.render import interaction as jinter
+from misaki_tpu.scene.compiler import compile_scene as jcompile
 from misaki_tpu.scene.compiler import load_and_compile as jload
+from misaki_tpu.scene.loader import load_string as jload_string
 from misaki_tpu_torch.accel import traverse as ptr
 from misaki_tpu_torch.bsdf import kernels as pbsdf
 from misaki_tpu_torch.core import rng as prng
@@ -164,6 +167,64 @@ def test_sample_emitter_direct(wavefront):
     ppdf = pem.pdf_emitter_direct(w["ps"], w["psi"]["emitter"], w["pray"]["d"],
                                   w["psi"]["t"], w["psi"]["ng"])
     _close(jpdf, ppdf)
+
+
+@pytest.fixture(scope="module")
+def two_lights():
+    """TWO_LIGHTS compiled by misaki_tpu, and the port's scene on the very
+    same tables."""
+    js = jcompile(jload_string(TWO_LIGHTS))
+    return js, from_compiled(jax.tree_util.tree_map(np.asarray, js), device="cpu")
+
+
+def test_the_two_light_tables_are_misaki_tpus(two_lights):
+    """The port's own compile of the padded two-light scene gives
+    misaki_tpu's face CDF rows and face packs."""
+    js, _ = two_lights
+    own = compile_scene(load_string(TWO_LIGHTS), device="cpu")
+    assert tuple(own.emitters.face_cdf.shape) == np.asarray(js.emitters.face_cdf).shape == (2, 5120)
+    _close(js.emitters.face_cdf, own.emitters.face_cdf, rtol=1e-6, atol=0)
+    _close(js.emitters.face_pack, own.emitters.face_pack, rtol=1e-5, atol=1e-6)
+
+
+def test_the_mesh_lights_samplers_match_misaki_tpu(two_lights):
+    """`sample_emitter_direct` and `sample_emitter_ray` against misaki_tpu's
+    (its face pick the dense (Fmax, L) count, the port's a binary search of
+    the CDF row) with the same samples and wavelengths: two lights, one a
+    2-face rectangle whose row is padded to the other's 5,120 faces, and
+    face samples uniform, exactly at the rows' entries and one float either
+    side of them. A lane that picked another face would put its point a
+    triangle's edge (about 0.03) away and its face's normal `n` about 0.06
+    rad away."""
+    js, ps = two_lights
+    g = torch.Generator().manual_seed(13)
+    cdf = ps.emitters.face_cdf
+    uy = torch.cat([samples_at_entries(cdf[0], g, 1000),
+                    samples_at_entries(cdf[1], g, 1000)]).numpy()
+    L = uy.shape[0]
+    ux, u_sel, d0, d1 = (torch.rand(L, generator=g).numpy() for _ in range(4))
+    ref_p = tuple(torch.rand(L, generator=g).numpy() * 4.0 - 2.0 + off for off in (0, 0, 3))
+    lam = (400.0 + 300.0 * torch.rand((4, L), generator=g)).numpy()
+    J = jnp.asarray
+
+    jd = jem.sample_emitter_direct(js, tuple(map(J, ref_p)), J(lam), (J(ux), J(uy)),
+                                   jem.radiance_all(js, J(lam)))
+    pd = pem.sample_emitter_direct(ps, tuple(map(t, ref_p)), t(lam), (t(ux), t(uy)),
+                                   pem.radiance_all(ps, t(lam)))
+    for k in ("d", "dist", "pdf", "delta"):
+        _close(jd[k], pd[k])
+    _close(jd["spec"], pd["spec"], rtol=1e-5, atol=1e-6)
+    lit = np.asarray(jd["pdf"]) > 0
+    assert 0.2 < lit.mean() < 0.9
+
+    jr = jem.sample_emitter_ray(js, J(lam), J(u_sel), (J(ux), J(uy)), (J(d0), J(d1)))
+    pr = pem.sample_emitter_ray(ps, t(lam), t(u_sel), (t(ux), t(uy)), (t(d0), t(d1)))
+    for k in ("o", "d", "n", "valid"):
+        _close(jr[k], pr[k], rtol=1e-6, atol=1e-6)
+    _close(jr["flux"], pr["flux"], rtol=1e-5, atol=1e-6)
+    # the sphere's lanes land on thousands of its faces
+    on_sphere = np.asarray(u_sel) >= 0.5
+    assert np.unique(np.round(n(pr["n"][0])[on_sphere], 6)).shape[0] > 1000
 
 
 def test_bsdf_sample_eval_pdf(wavefront):

@@ -59,3 +59,40 @@ def golden_criteria(got, want):
 def luminance_y(rgb):
     rgb = np.asarray(rgb)
     return 0.212671 * rgb[..., 0] + 0.715160 * rgb[..., 1] + 0.072169 * rgb[..., 2]
+
+
+# A 2-face rectangle light beside a 5,120-face sphere light, so the
+# rectangle's row of the emitters' face CDF is padded with 1.0 to 5,120
+# entries; a diffuse rectangle behind them.
+TWO_LIGHTS = """<scene version="0.6.0">
+    <integrator type="path"><integer name="max_depth" value="3"/></integrator>
+    <sensor type="perspective">
+        <transform name="to_world">
+            <lookat origin="0, 0, 6" target="0, 0, 0" up="0, 1, 0"/>
+        </transform>
+        <film type="hdrfilm">
+            <integer name="width" value="8"/><integer name="height" value="8"/>
+        </film>
+    </sensor>
+    <shape type="rectangle">
+        <transform name="to_world"><translate x="2" y="0" z="0"/></transform>
+        <emitter type="area"><rgb name="radiance" value="3, 3, 3"/></emitter>
+    </shape>
+    <shape type="sphere">
+        <point name="center" x="-1" y="0" z="0"/><float name="radius" value="0.5"/>
+        <emitter type="area"><rgb name="radiance" value="2, 1, 1"/></emitter>
+    </shape>
+    <shape type="rectangle">
+        <transform name="to_world"><scale x="5" y="5" z="1"/><translate z="-1"/></transform>
+    </shape>
+</scene>"""
+
+
+def samples_at_entries(cdf, g, L):
+    """uy values: uniform, each CDF entry exactly, the entry's float
+    neighbours, 0 and 1."""
+    u = torch.rand(L, generator=g)
+    entries = cdf[torch.randint(0, cdf.shape[0], (L,), generator=g)]
+    up = torch.nextafter(entries, torch.tensor(2.0))
+    down = torch.nextafter(entries, torch.tensor(-1.0))
+    return torch.cat([u, entries, up, down, torch.tensor([0.0, 1.0])])
